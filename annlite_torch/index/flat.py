@@ -1,0 +1,164 @@
+"""Exact flat index — quantized first-pass scan + exact float32 rerank; the
+port of `annlite_tpu/index/flat.py`.
+
+The dense scan is bound by the bytes it reads, so the default path scans an
+int8 copy of the corpus (4x fewer bytes than float32) and reranks the top-R
+shortlist against the exact float32 rows: returned distances are exact.  The
+predicate mask is applied before the top-k reduction, so filtered search
+costs the same as unfiltered.
+
+``scan_mode``: 'int8' (default) or 'exact' (a float32 product, no quantized
+copy, for parity debugging).  'int4' and 'bf16' need variants of the fused
+kernel that are not ported yet (ROADMAP).
+"""
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..enums import Metric
+from ..math import dot_f32, l2_normalize
+from ..ops import BIG
+from ..ops.scan import quantize_rows_int8, scan_topk
+from ..ops.topk import topk
+from .base import BaseIndex
+from .buffer import DeviceBuffer
+
+
+def _flat_search(q, x, norms_sq, mask, k, metric_val):
+    """q[Q, D], x[N, D], norms_sq[N], mask[N] -> (dists[Q,k], idx[Q,k])."""
+    dots = dot_f32(q, x)
+    if metric_val == int(Metric.EUCLIDEAN):
+        scores = torch.sum(q * q, dim=1)[:, None] + norms_sq[None, :] - 2.0 * dots
+    else:  # cosine (pre-normalized) and inner product: dist = 1 - dot
+        scores = 1.0 - dots
+    big = torch.tensor(BIG, dtype=torch.float32, device=scores.device)
+    scores = torch.where(mask[None, :] > 0, scores, big)
+    d, rows = topk(scores, k)
+    return d, rows.to(torch.int32)
+
+
+class FlatIndex(BaseIndex):
+    # update_with_ids (= add_with_ids) overwrites rows in place — the
+    # container's update() keeps rows stable instead of dead-mark + append
+    supports_inplace_update = True
+
+    def __init__(self, dim: int, metric: Metric = Metric.COSINE, chunk: int = 65536,
+                 scan_mode: str = 'int8',
+                 device: Optional[Union[str, torch.device]] = None, **kwargs):
+        super().__init__(dim=dim, metric=metric, **kwargs)
+        if scan_mode in ('int4', 'bf16'):
+            raise NotImplementedError(
+                f'scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: '
+                'the int4 and bf16 variants of the fused scan)')
+        if scan_mode not in ('int8', 'exact'):
+            raise ValueError(f'unknown scan_mode: {scan_mode!r}')
+        self.scan_mode = scan_mode
+        self.device = resolve_device(device)
+        # growth policy flows from BaseIndex (reference base.py:29-57 knobs:
+        # initial_size / expand_step_size / expand_mode)
+        grow = dict(device=self.device, chunk=chunk,
+                    expand_mode=self.expand_mode,
+                    expand_step=self.expand_step_size,
+                    initial_capacity=self.initial_size)
+        self._buf = DeviceBuffer((dim,), np.float32, **grow)
+        self._norms = DeviceBuffer((), np.float32, **grow)
+        if scan_mode == 'int8':
+            self._scan_buf = DeviceBuffer((dim,), np.int8, **grow)
+            self._scale = DeviceBuffer((), np.float32, **grow)
+        else:
+            self._scan_buf = None
+            self._scale = None
+
+    @property
+    def size(self) -> int:
+        return self._buf.size
+
+    @property
+    def capacity(self) -> int:
+        return self._buf.capacity
+
+    def _prep(self, x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x, dtype=np.float32).reshape(-1, self.dim)
+        if self.metric == Metric.COSINE:
+            x = l2_normalize(torch.from_numpy(x)).numpy()
+        return x
+
+    def add_with_ids(self, x: np.ndarray, ids: np.ndarray):
+        x = self._prep(x)
+        ids = np.asarray(ids)
+        self._buf.write(ids, x)
+        self._norms.write(ids, np.sum(x * x, axis=1))
+        if self.scan_mode == 'int8':
+            codes, scale = quantize_rows_int8(x)
+            self._scan_buf.write(ids, codes)
+            self._scale.write(ids, scale)
+
+    def _device_mask(self, n_pad: int, mask: Optional[np.ndarray]) -> torch.Tensor:
+        m = np.zeros(n_pad, dtype=np.int8)
+        if mask is None:
+            m[: self.size] = 1
+        else:
+            m[: self.size] = np.asarray(mask[: self.size], dtype=np.int8)
+        return torch.from_numpy(m).to(self.device)
+
+    def search(self, query: np.ndarray, limit: int = 10, mask: Optional[np.ndarray] = None):
+        # the searcher normalizes cosine queries itself
+        q = np.asarray(query, dtype=np.float32).reshape(-1, self.dim)
+        d, idx = self.device_searcher(limit=limit, mask=mask)(q)
+        return d.cpu().numpy(), idx.cpu().numpy()
+
+    def device_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
+        """Device-resident search callable: ``query [Q, D] float32 (a tensor
+        on the index's device, or anything ``torch.as_tensor`` takes) ->
+        (dists [Q, limit], rows [Q, limit])`` as tensors on the device,
+        without host transfers of the corpus.  Captures the current buffers
+        and mask — rebuild after writes."""
+        x = self._buf.device_view()
+        norms = self._norms.device_view()
+        m = self._device_mask(x.shape[0], mask)
+        k = min(limit, max(self.size, 1))
+        metric = self.metric
+        if self.scan_mode == 'int8':
+            scan = self._scan_buf.device_view()
+            scale = self._scale.device_view()
+        device = self.device
+
+        def run(query):
+            q = torch.as_tensor(query, dtype=torch.float32, device=device)
+            if metric == Metric.COSINE:
+                q = l2_normalize(q)
+            if self.scan_mode == 'exact':
+                return _flat_search(q, x, norms, m, k, int(metric))
+            return scan_topk(q, scan, scale, norms, m, k, metric, x_f32=x)
+
+        return run
+
+    def reset(self):
+        self._buf.reset()
+        self._norms.reset()
+        if self._scan_buf is not None:
+            self._scan_buf.reset()
+            self._scale.reset()
+
+    # ----- snapshot state (see AnnLite.dump_index) -----
+
+    def state_arrays(self):
+        return {
+            'kind': np.array('flat'),
+            'vectors': self._buf.host_view().copy(),
+            'norms': self._norms.host_view().copy(),
+        }
+
+    def load_state_arrays(self, state):
+        self.reset()
+        v = state['vectors']
+        if v.size:
+            rows = np.arange(v.shape[0])
+            self._buf.write(rows, v)
+            self._norms.write(rows, state['norms'])
+            if self.scan_mode == 'int8':
+                codes, scale = quantize_rows_int8(v)
+                self._scan_buf.write(rows, codes)
+                self._scale.write(rows, scale)
