@@ -6,6 +6,13 @@ dirty; :meth:`DeviceBuffer.device_view` then copies only the dirty chunks
 into a preallocated device tensor with an in-place ``copy_``.  This replaces
 the JAX package's donated ``dynamic_update_slice`` flush, which existed
 because JAX arrays are immutable; a PyTorch tensor is updated in place.
+
+``grow_axis=1`` grows the last axis, for the transposed ``[M, N]`` PQ codes.
+``device_dtype`` keeps the device copy in another type than the host's: the
+rerank rows live on the device as bfloat16, which numpy lacks, so the host
+keeps float32 values rounded to bfloat16 on write (round to nearest even,
+as ``ml_dtypes`` rounds in the JAX package) and the two copies hold the same
+numbers.
 """
 from typing import Optional, Tuple
 
@@ -34,10 +41,17 @@ class DeviceBuffer:
         initial_capacity: int = 0,
         expand_mode: 'ExpandMode' = None,
         expand_step: int = 10240,
+        grow_axis: int = 0,
+        device_dtype: Optional[torch.dtype] = None,
     ):
+        if grow_axis not in (0, 1):
+            raise ValueError(f'grow_axis must be 0 or 1, got {grow_axis}')
         self.fixed_shape = tuple(fixed_shape)  # shape of non-growing axes
         self.dtype = np.dtype(dtype)
+        self.grow_axis = grow_axis
         self.device = torch.device(device)
+        self._host_tdtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        self.device_dtype = device_dtype or self._host_tdtype
         self.chunk = chunk
         self.expand_mode = (
             expand_mode if expand_mode is not None else ExpandMode.ADAPTIVE
@@ -51,10 +65,19 @@ class DeviceBuffer:
         else:
             self.capacity = max(initial_capacity or self.expand_step, 1)
         self.size = 0
-        self._host = np.zeros((self.capacity,) + self.fixed_shape, dtype=self.dtype)
+        self._host = np.zeros(self._shape(self.capacity), dtype=self.dtype)
         self._device: Optional[torch.Tensor] = None
         self._device_cap = 0
         self._dirty = set()
+
+    def _shape(self, n: int) -> Tuple[int, ...]:
+        if self.grow_axis == 0:
+            return (n,) + self.fixed_shape
+        return self.fixed_shape + (n,)
+
+    def _rows(self, lo: int, hi: int):
+        """Index of rows ``[lo, hi)`` along the growing axis."""
+        return slice(lo, hi) if self.grow_axis == 0 else (Ellipsis, slice(lo, hi))
 
     # ----- host writes -----
 
@@ -73,14 +96,15 @@ class DeviceBuffer:
         else:  # ADAPTIVE (default): double, chunk-quantized — amortized
             # O(1) copies
             new_cap = _round_up(max(n, self.capacity * 2), self.chunk)
-        new = np.zeros((new_cap,) + self.fixed_shape, dtype=self.dtype)
-        new[: self.capacity] = self._host
+        new = np.zeros(self._shape(new_cap), dtype=self.dtype)
+        new[self._rows(0, self.capacity)] = self._host
         self._host = new
         self.capacity = new_cap
 
     def append(self, values: np.ndarray) -> np.ndarray:
         """Append rows; returns their positions."""
-        rows = np.arange(self.size, self.size + values.shape[0])
+        n = values.shape[0] if self.grow_axis == 0 else values.shape[-1]
+        rows = np.arange(self.size, self.size + n)
         self.write(rows, values)
         return rows
 
@@ -91,13 +115,20 @@ class DeviceBuffer:
             return
         hi = int(rows.max()) + 1
         self.ensure_capacity(hi)
-        self._host[rows] = values
+        if self.device_dtype != self._host_tdtype:
+            # round on the host exactly as the device copy will hold it
+            values = torch.from_numpy(np.ascontiguousarray(values, self.dtype)).to(
+                self.device_dtype).to(self._host_tdtype).numpy()
+        if self.grow_axis == 0:
+            self._host[rows] = values
+        else:
+            self._host[..., rows] = values
         self.size = max(self.size, hi)
         for c in np.unique(rows // self.chunk):
             self._dirty.add(int(c))
 
     def host_view(self) -> np.ndarray:
-        return self._host[: self.size]
+        return self._host[self._rows(0, self.size)]
 
     # ----- device sync -----
 
@@ -113,17 +144,17 @@ class DeviceBuffer:
             # full (re)allocation on growth — amortized by doubling host
             # capacity; drop the old mirror first so both never coexist
             self._device = None
-            self._device = torch.zeros(
-                (need_cap,) + self.fixed_shape,
-                dtype=torch.from_numpy(self._host[:0]).dtype, device=self.device)
+            self._device = torch.zeros(self._shape(need_cap),
+                                       dtype=self.device_dtype, device=self.device)
             self._device_cap = need_cap
             self._dirty = set(range(need_cap // self.chunk))
         for c in sorted(self._dirty):
             start = c * self.chunk
             if start >= self._device_cap:
                 continue
-            vals = self._host[start : start + self.chunk]
-            self._device[start : start + vals.shape[0]].copy_(torch.from_numpy(vals))
+            end = min(start + self.chunk, self.capacity)
+            vals = np.ascontiguousarray(self._host[self._rows(start, end)])
+            self._device[self._rows(start, end)].copy_(torch.from_numpy(vals))
         self._dirty.clear()
         return self._device
 

@@ -1,13 +1,17 @@
 """AnnLite — the public facade; the port of `annlite_tpu/index_api.py`.
 
-This slice of the port serves the flat index, which is what a default
-``AnnLite`` runs (no PQ codec, one cell: ``index_type='auto'`` resolves to
-flat).  The codecs and the other index types are not ported yet (ROADMAP
-queue 1); asking for one raises ``NotImplementedError``.
+A default ``AnnLite`` runs the flat index; ``n_subvectors`` adds a PQ codec
+and ``index_type='auto'`` resolves to the PQ scan, and with ``n_cells > 1``
+also a VQ coarse quantizer and the IVF-PQ index.  Codec-backed indexes are
+built once the codecs are trained (``train``, or ``partial_train`` +
+``build_codebooks``, or codecs found in the model directory).  The projector
+and OPQ codecs (``n_components``, ``use_opq``) and the graph and sharded
+index types are not ported yet (ROADMAP queue 1): asking for one raises
+``NotImplementedError``.
 
-Snapshots and ``params_hash`` match the JAX package's, so one ``data_path``
-serves both packages: each opens the other's doc store, tables and index
-snapshots.
+Snapshots, codec files and ``params_hash`` match the JAX package's, so one
+``data_path`` serves both packages: each opens the other's doc store,
+tables, codecs and index snapshots.
 """
 import hashlib
 import json
@@ -19,13 +23,22 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .codecs import PQCodec, VQCodec
 from .container import CellContainer
-from .convert import flat_index_from_jax_state
+from .convert import (flat_index_from_jax_state, ivf_pq_index_from_jax_state,
+                      pq_scan_index_from_jax_state)
 from .device import resolve_device
 from .doc import Doc, docs_to_embeddings
 from .enums import ExpandMode, Metric, parse_metric
 from .helper import setup_logging
 from .index.flat import FlatIndex
+from .index.ivf_pq import IVFPQIndex
+from .index.pq_scan import PQScanIndex
+from .math import cdist, top_k
+
+MAX_TRAINING_DATA_SIZE = 10240
+INDEX_TYPES = ('auto', 'flat', 'pq_scan', 'graph', 'ivf_pq', 'sharded_pq',
+               'sharded_flat', 'sharded_ivf_pq', 'sharded_graph')
 
 
 class AnnLite:
@@ -36,6 +49,7 @@ class AnnLite:
         n_cells: int = 1,
         n_subvectors: Optional[int] = None,
         n_clusters: int = 256,
+        n_probe: int = 16,
         n_components: Optional[int] = None,
         initial_size: Optional[int] = None,
         expand_step_size: int = 10240,
@@ -46,22 +60,35 @@ class AnnLite:
         create_if_missing: bool = True,
         read_only: bool = False,
         verbose: bool = False,
+        exact_topk: bool = False,
+        rerank: int = 0,
         scan_mode: str = 'int8',
         index_type: str = 'auto',
+        use_opq: bool = False,
+        n_assign: int = 1,
+        assign_margin: float = 0.05,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if n_subvectors or n_cells > 1 or n_components or index_type not in (
-                'auto', 'flat'):
+        if index_type not in INDEX_TYPES:
+            raise ValueError(f'unknown index_type {index_type!r}')
+        if n_components or use_opq or index_type == 'graph' or index_type.startswith(
+                'sharded'):
             raise NotImplementedError(
-                'annlite_torch serves the flat index only so far: the codecs '
-                '(n_subvectors, n_cells > 1, n_components) and the other index '
-                'types are not ported yet (ROADMAP queue 1)')
+                'annlite_torch does not port the projector and OPQ codecs '
+                '(n_components, use_opq) nor the graph and sharded index types '
+                'yet (ROADMAP queue 1)')
         self.logger = setup_logging(verbose)
         self.n_dim = n_dim
         self.metric = parse_metric(metric)
         self.n_cells = n_cells
         self.n_subvectors = n_subvectors
         self.n_clusters = n_clusters
+        # the reference clamps n_probe UP to n_cells, so it always probes
+        # every cell; the JAX package clamps DOWN so that IVF pruning is
+        # reachable through the facade, and so does the port
+        self.n_probe = min(n_probe, n_cells) if n_cells > 1 else 1
+        self.n_assign = max(1, int(n_assign))
+        self.assign_margin = float(assign_margin)
         self.n_components = n_components
         self.initial_size = initial_size
         self.expand_step_size = expand_step_size
@@ -71,8 +98,13 @@ class AnnLite:
             expand_mode = ExpandMode.from_string(expand_mode)
         self.expand_mode = expand_mode
         self.read_only = read_only
+        # only the PQ scan reads it: the full ADC scores (K5) and an exact
+        # top-k instead of the deep select
+        self.exact_topk = exact_topk
+        self.rerank = rerank
         self.scan_mode = scan_mode
         self.index_type = index_type
+        self.use_opq = use_opq
         self.device = resolve_device(device)
 
         if columns is None and filterable_attrs:
@@ -88,28 +120,89 @@ class AnnLite:
                 f'create_if_missing=False'
             )
 
+        # ----- codecs (load or init) -----
+        self._vq_codec = (
+            VQCodec(n_cells, metric=self.metric, device=self.device)
+            if n_cells > 1 else None
+        )
+        self._pq_codec = (
+            PQCodec(n_dim, n_subvectors=n_subvectors, n_clusters=n_clusters,
+                    metric=self.metric, device=self.device)
+            if n_subvectors else None
+        )
+        self._load_codecs_if_exist()
+
+        self._container: Optional[CellContainer] = None
+        if self.is_trained or not self._requires_training:
+            self._build_container()
+
+        # auto-train from stored docs, then restore
+        if self._container is None and self._stored_docs_exist():
+            self._auto_train_from_store()
+        if (
+            self._container is not None
+            and self.index_size == 0
+            and (self._latest_snapshot() is not None or self.total_docs > 0)
+        ):
+            self._maybe_restore()
+
+    # ------------------------------------------------------------------
+    # construction helpers
+    # ------------------------------------------------------------------
+
+    @property
+    def _requires_training(self) -> bool:
+        return self._vq_codec is not None or self._pq_codec is not None
+
+    @property
+    def is_trained(self) -> bool:
+        return all(c is None or c.is_trained for c in (self._vq_codec, self._pq_codec))
+
+    def _kind(self) -> str:
+        if self.index_type != 'auto':
+            return self.index_type
+        if self._pq_codec is not None:
+            return 'ivf_pq' if self.n_cells > 1 else 'pq_scan'
+        return 'flat'
+
+    def _grow_kwargs(self) -> dict:
+        return dict(initial_size=self.initial_size,
+                    expand_step_size=self.expand_step_size,
+                    expand_mode=self.expand_mode)
+
+    def _index_kwargs(self) -> dict:
+        """Constructor arguments of the index of this configuration (all but
+        the codec)."""
+        kind = self._kind()
+        if kind in ('pq_scan', 'ivf_pq') and self._pq_codec is None:
+            raise ValueError(f'index_type={kind} requires n_subvectors')
+        if kind == 'ivf_pq':
+            return dict(rerank=self.rerank, device=self.device)
+        if kind == 'pq_scan':
+            return dict(exact_topk=self.exact_topk, rerank=self.rerank,
+                        device=self.device, **self._grow_kwargs())
+        return dict(metric=self.metric, scan_mode=self.scan_mode, device=self.device,
+                    **self._grow_kwargs())
+
+    def _new_index(self):
+        kind = self._kind()
+        if kind == 'ivf_pq':
+            return IVFPQIndex(self.n_dim, self._pq_codec, **self._index_kwargs())
+        if kind == 'pq_scan':
+            return PQScanIndex(self.n_dim, self._pq_codec, **self._index_kwargs())
+        return FlatIndex(self.n_dim, **self._index_kwargs())
+
+    def _build_container(self):
         self._container = CellContainer(
             dim=self.n_dim,
-            index=FlatIndex(self.n_dim, **self._index_kwargs()),
+            index=self._new_index(),
             metric=self.metric,
             columns=self._columns,
             data_path=self.data_path,
         )
-        if self.index_size == 0 and (
-            self._latest_snapshot() is not None or self.total_docs > 0
-        ):
-            self._maybe_restore()
-
-    def _index_kwargs(self) -> dict:
-        return dict(
-            metric=self.metric, scan_mode=self.scan_mode, device=self.device,
-            initial_size=self.initial_size,
-            expand_step_size=self.expand_step_size,
-            expand_mode=self.expand_mode,
-        )
 
     # ------------------------------------------------------------------
-    # CRUD
+    # training
     # ------------------------------------------------------------------
 
     def _sanity_check(self, x: np.ndarray):
@@ -121,13 +214,74 @@ class AnnLite:
             )
         return x
 
+    def train(self, x: np.ndarray, auto_save: bool = True, force_train: bool = False):
+        x = self._sanity_check(x)
+        if self.is_trained and not force_train:
+            self.logger.warning(
+                'The annlite has been trained or is not trainable. '
+                'Please use `force_train=True` to retrain.'
+            )
+            return
+        if self._vq_codec:
+            self.logger.info(f'Training VQ codec (K={self.n_cells})')
+            self._vq_codec.fit(x)
+        if self._pq_codec:
+            self.logger.info(f'Training PQ codec (m={self.n_subvectors})')
+            self._pq_codec.fit(x)
+        if auto_save:
+            self.dump_model()
+        if self._container is None:
+            self._build_container()
+
+    def partial_train(self, x: np.ndarray, auto_save: bool = True,
+                      force_train: bool = False):
+        x = self._sanity_check(x)
+        if self.is_trained and not force_train:
+            self.logger.warning('The annlite has been trained; use force_train=True')
+            return
+        if self._vq_codec:
+            self._vq_codec.partial_fit(x)
+        if self._pq_codec:
+            self._pq_codec.partial_fit(x)
+        if auto_save:
+            self.dump_model()
+
+    def build_codebooks(self):
+        """Freeze the partial_fit state (needed before use after
+        partial_train)."""
+        for c in (self._vq_codec, self._pq_codec):
+            if c is not None and not c.is_trained:
+                c.build_codebook()
+        if self._container is None and self.is_trained:
+            self._build_container()
+
+    # ------------------------------------------------------------------
+    # CRUD
+    # ------------------------------------------------------------------
+
     def _check_writable(self):
         if self.read_only:
             raise RuntimeError('the indexer is read-only, cannot modify it')
+        if not self.is_trained:
+            raise RuntimeError('the indexer is not trained, cannot add new documents')
+        if self._container is None:
+            self._build_container()
 
-    @staticmethod
-    def _cells(x: np.ndarray) -> np.ndarray:
-        return np.zeros(x.shape[0], dtype=np.int64)
+    def _check_trained(self):
+        if not self.is_trained:
+            raise RuntimeError('the indexer is not trained, cannot search')
+
+    def _cells(self, x: np.ndarray) -> np.ndarray:
+        """Each row's IVF cell (``[n]``), or its soft assignment (``[n, a]``,
+        -1 pads) when ``n_assign > 1``; cell 0 without a VQ codec."""
+        if self._vq_codec is None:
+            return np.zeros(x.shape[0], dtype=np.int64)
+        if self.n_assign > 1 and getattr(self._container.index, 'wants_cells', False):
+            # boundary points are stored in up to n_assign cells (the IVF
+            # index dedups at search)
+            return self._vq_codec.encode_multi(x, n_assign=self.n_assign,
+                                               margin=self.assign_margin)
+        return np.asarray(self._vq_codec.encode(x)).reshape(-1)
 
     def index(self, docs: List[Doc]):
         self._check_writable()
@@ -159,6 +313,16 @@ class AnnLite:
     # search
     # ------------------------------------------------------------------
 
+    def _cell_selection(self, query_np: np.ndarray) -> Optional[np.ndarray]:
+        """Per-query top-``n_probe`` cells through the VQ codebook."""
+        if self._vq_codec is None:
+            return None
+        cb = torch.from_numpy(np.ascontiguousarray(self._vq_codec.codebook))
+        q = torch.from_numpy(np.ascontiguousarray(query_np, dtype=np.float32))
+        dists = cdist(q.to(self.device), cb.to(self.device), metric=self.metric)
+        _, cells = top_k(dists, k=min(self.n_probe, self.n_cells))
+        return cells.cpu().numpy()
+
     def search(
         self,
         docs: List[Doc],
@@ -167,9 +331,11 @@ class AnnLite:
         include_metadata: bool = True,
     ):
         """Attach ``matches`` (with scores) to each query doc."""
+        self._check_trained()
         x = docs_to_embeddings(docs)
         match_docs, _, _ = self._container.search_cells(
-            x, filter=filter, limit=limit, include_metadata=include_metadata,
+            x, cells=self._cell_selection(x), filter=filter, limit=limit,
+            include_metadata=include_metadata,
         )
         for doc, matches in zip(docs, match_docs):
             doc.matches = matches
@@ -182,10 +348,11 @@ class AnnLite:
         limit: int = 10,
         include_metadata: bool = False,
     ):
+        self._check_trained()
         query_np = self._sanity_check(query_np)
         match_docs, _, _ = self._container.search_cells(
-            query_np, filter=filter, limit=limit,
-            include_metadata=include_metadata,
+            query_np, cells=self._cell_selection(query_np), filter=filter,
+            limit=limit, include_metadata=include_metadata,
         )
         return match_docs
 
@@ -193,24 +360,34 @@ class AnnLite:
         self, query_np: np.ndarray, filter: Optional[Dict] = None, limit: int = 10
     ):
         """Returns (dists, doc_ids) ragged lists."""
+        self._check_trained()
         query_np = self._sanity_check(query_np)
-        return self._container.search_numpy(query_np, filter=filter, limit=limit)
+        return self._container.search_numpy(
+            query_np, filter=filter, limit=limit,
+            cells=self._cell_selection(query_np),
+        )
 
     def device_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Device-resident searcher over the index: ``query [Q, D] float32 ->
         (dists [Q, limit], global_rows [Q, limit])`` as tensors on the
         device, with no host transfer of the corpus — the serving hot path.
         Returns GLOBAL ROWS (map them to doc ids with :meth:`rows_to_docids`).
-        The flat index does not track deletes itself, so the container's
-        alive bitmap is fused into the captured mask: deleted docs never
-        surface.  Rebuild after writes."""
+        Only the flat index has one, as in the JAX package.  The flat index
+        does not track deletes itself, so the container's alive bitmap is
+        fused into the captured mask: deleted docs never surface.  Rebuild
+        after writes."""
+        self._check_trained()
+        idx = self._container.index
+        if not hasattr(idx, 'device_searcher'):
+            raise NotImplementedError(
+                f'{type(idx).__name__} has no device-resident searcher')
         alive = self._container._alive
         if mask is None:
             mask = alive
         else:
             u = np.asarray(mask[: len(alive)]).astype(bool)
             mask = u & alive[: len(u)]
-        return self._container.index.device_searcher(limit=limit, mask=mask)
+        return idx.device_searcher(limit=limit, mask=mask)
 
     def serving_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Serving closure: the device-resident searcher plus ONE row->doc-id
@@ -264,6 +441,20 @@ class AnnLite:
         return self._container.get_doc_by_id(doc_id)
 
     # ------------------------------------------------------------------
+    # codec passthrough
+    # ------------------------------------------------------------------
+
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        if self._pq_codec is None:
+            raise RuntimeError('PQ codec is not configured')
+        return self._pq_codec.encode(self._sanity_check(x))
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        if self._pq_codec is None:
+            raise RuntimeError('PQ codec is not configured')
+        return self._pq_codec.decode(codes)
+
+    # ------------------------------------------------------------------
     # persistence (same layout as the JAX package)
     # ------------------------------------------------------------------
 
@@ -287,9 +478,29 @@ class AnnLite:
     def snapshot_root(self) -> Path:
         return self.data_path / f'snapshot-{self.params_hash}'
 
+    def _load_codecs_if_exist(self):
+        p = self.model_path
+        try:
+            if self._vq_codec and (p / 'vq.npz').exists():
+                self._vq_codec = VQCodec.load(p / 'vq.npz', device=self.device)
+            if self._pq_codec and (p / 'pq.npz').exists():
+                self._pq_codec = PQCodec.load(p / 'pq.npz', device=self.device)
+        except Exception as e:  # corrupted model dir: retrain
+            self.logger.warning(f'failed to load codecs from {p}: {e}')
+
+    def dump_model(self):
+        p = self.model_path
+        p.mkdir(parents=True, exist_ok=True)
+        if self._vq_codec:
+            self._vq_codec.dump(p / 'vq.npz')
+        if self._pq_codec:
+            self._pq_codec.dump(p / 'pq.npz')
+
     def dump_index(self) -> Path:
         """Write a snapshot keyed off the data state; rolls back the partial
         dir on failure."""
+        if self._container is None:
+            raise RuntimeError('nothing to snapshot')
         # latest cell-table commit time + the doc store's monotone
         # transaction id: same state, same name
         latest = self._container.cell_table.get_latest_commit()
@@ -315,9 +526,7 @@ class AnnLite:
             raise
 
     def dump(self):
-        # the flat index has no codecs: the model dir stays empty, as the
-        # JAX package leaves it
-        self.model_path.mkdir(parents=True, exist_ok=True)
+        self.dump_model()
         return self.dump_index()
 
     def _latest_snapshot(self) -> Optional[Path]:
@@ -336,6 +545,21 @@ class AnnLite:
         elif self.total_docs > 0:
             self._rebuild_index_from_local()
 
+    def _index_from_state(self, state: Dict[str, np.ndarray]):
+        """The index of a snapshot's ``state_arrays()``, whichever package
+        wrote it."""
+        kind = str(np.asarray(state['kind']))
+        if kind != self._kind():
+            raise ValueError(
+                f'snapshot holds a {kind!r} index, this AnnLite serves {self._kind()!r}')
+        if kind == 'pq_scan':
+            return pq_scan_index_from_jax_state(state, self._pq_codec,
+                                                **self._index_kwargs())
+        if kind == 'ivf_pq':
+            return ivf_pq_index_from_jax_state(state, self._pq_codec,
+                                               **self._index_kwargs())
+        return flat_index_from_jax_state(state, **self._index_kwargs())
+
     def _restore_from_snapshot(self, snap: Path):
         self.logger.info(f'restoring from snapshot {snap}')
         c = self._container
@@ -344,7 +568,8 @@ class AnnLite:
         c.meta_table.load(snap / 'metas.db')
         with np.load(snap / 'index_state.npz', allow_pickle=False) as z:
             state = {k: z[k] for k in z.files}
-        c.index = flat_index_from_jax_state(state, **self._index_kwargs())
+        c.index = None  # drop the old index's device buffers first
+        c.index = self._index_from_state(state)
         self._rebuild_columns_from_table()
 
     def _reset_columns(self):
@@ -373,6 +598,31 @@ class AnnLite:
             x = docs_to_embeddings(batch)
             self._container.insert(x, self._cells(x), batch, only_index=True)
 
+    def _stored_docs_exist(self) -> bool:
+        return (self.data_path / 'docs' / 'docs.db').exists()
+
+    def _auto_train_from_store(self):
+        """Train the codecs from stored docs when opening an untrained index
+        over existing data."""
+        from .storage.kv import DocStorage
+
+        store = DocStorage(self.data_path / 'docs')
+        if store.size == 0:
+            store.close()
+            self._build_container()
+            return
+        xs, count = [], 0
+        for batch in store.batched_iterator():
+            xs.append(docs_to_embeddings(batch))
+            count += len(batch)
+            if count >= MAX_TRAINING_DATA_SIZE:
+                break
+        store.close()
+        self.train(np.concatenate(xs)[:MAX_TRAINING_DATA_SIZE])
+        self._maybe_restore()
+        if self.index_size == 0 and self.total_docs > 0:
+            self._rebuild_index_from_local()
+
     def compact(self):
         """Reclaim dead rows (deletes/updates leave bitmap holes): rebuild the
         index + metadata from the durable doc store."""
@@ -389,10 +639,12 @@ class AnnLite:
         self._rebuild_index_from_local()
 
     def clear(self):
-        self._container.clear()
+        if self._container is not None:
+            self._container.clear()
 
     def close(self):
-        self._container.close()
+        if self._container is not None:
+            self._container.close()
 
     # ------------------------------------------------------------------
     # stats
@@ -400,11 +652,11 @@ class AnnLite:
 
     @property
     def total_docs(self) -> int:
-        return self._container.total_docs
+        return self._container.total_docs if self._container else 0
 
     @property
     def index_size(self) -> int:
-        return self._container.index_size
+        return self._container.index_size if self._container else 0
 
     @property
     def stat(self) -> Dict:
@@ -414,7 +666,7 @@ class AnnLite:
             'n_cells': self.n_cells,
             'n_dim': self.n_dim,
             'metric': self.metric.name,
-            'is_trained': True,
+            'is_trained': self.is_trained,
             'params_hash': self.params_hash,
             'data_path': str(self.data_path),
         }

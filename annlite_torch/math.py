@@ -14,14 +14,15 @@ _EPS = 1e-12
 
 
 def dot_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y.T`` in full float32.  On the card that needs TF32 off for
-    matrix products, the default, which the caller may have changed."""
+    """``x @ y.T`` in full float32 (batched over leading dimensions: ``[...,
+    n, d] x [..., m, d] -> [..., n, m]``).  On the card that needs TF32 off
+    for matrix products, the default, which the caller may have changed."""
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             'annlite_torch needs float32 products without TF32: set '
             'torch.backends.cuda.matmul.allow_tf32 = False'
         )
-    return torch.matmul(x.float(), y.float().T)
+    return torch.matmul(x.float(), y.float().transpose(-1, -2))
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:

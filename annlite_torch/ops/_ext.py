@@ -35,6 +35,12 @@ SIGNATURES = {
     'gather': {
         'annlite_gather_rerank': [_P] * 4 + [_I] * 6 + [_P],
     },
+    'adc': {
+        'annlite_adc_scores': [_P] * 4 + [_I] * 6 + [_P],
+        'annlite_adc_block_top2': [_P] * 5 + [_I] * 7 + [_P],
+        'annlite_ivf_scores': [_P] * 4 + [_I] * 6 + [_P],
+        'annlite_ivf_block_top2': [_P] * 6 + [_I] * 6 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

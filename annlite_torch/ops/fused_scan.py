@@ -50,30 +50,40 @@ def int8_dot(q8: torch.Tensor, x8: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _fused_scan_ref(q8, qsc, x8, rs, bias, block_rows: int, coef: float):
-    """Block pass: ``(s, r)`` float32/int32 ``[Q, N/block_rows*256]``; per
-    block ``[mn1 (128 lanes) | mn2 (128 lanes)]``."""
-    nq = q8.shape[0]
-    n = x8.shape[0]
+def _bucket_top2(sel, block_rows: int):
+    """Per block of ``block_rows`` columns of ``sel [Q, N]`` and per lane
+    (column mod 128), the best two of the block's ``block_rows/128`` groups:
+    ``(s, r)`` float32/int32 ``[Q, N/block_rows*256]``, per block ``[mn1 (128
+    lanes) | mn2 (128 lanes)]``.  Ties go to the lowest group; the second
+    group is clamped to ``groups - 1``.  Shared by the fused scan and the ADC
+    block passes (`ops/adc.py`, `ops/ivf.py`)."""
+    nq, n = sel.shape
     nb = n // block_rows
     groups = block_rows // 128
-    acc = int8_dot(q8, x8).float()
-    sel = bias[None, :] + coef * ((acc * qsc[:, None]) * rs[None, :])
+    dev = sel.device
     s4 = sel.reshape(nq, nb, groups, 128)
-    giota = torch.arange(groups, dtype=torch.int32, device=q8.device)[None, None, :, None]
-    big_g = torch.tensor(groups, dtype=torch.int32, device=q8.device)
+    giota = torch.arange(groups, dtype=torch.int32, device=dev)[None, None, :, None]
+    big_g = torch.tensor(groups, dtype=torch.int32, device=dev)
     mn1 = s4.amin(dim=2)
     g1 = torch.where(s4 <= mn1[:, :, None, :], giota, big_g).amin(dim=2)
     s4m = torch.where(giota == g1[:, :, None, :], float('inf'), s4)
     mn2 = s4m.amin(dim=2)
     g2 = torch.where(s4m <= mn2[:, :, None, :], giota, big_g).amin(dim=2)
-    base = (torch.arange(nb, dtype=torch.int32, device=q8.device) * block_rows)[None, :, None]
-    lane = torch.arange(128, dtype=torch.int32, device=q8.device)[None, None, :]
+    base = (torch.arange(nb, dtype=torch.int32, device=dev) * block_rows)[None, :, None]
+    lane = torch.arange(128, dtype=torch.int32, device=dev)[None, None, :]
     r1 = base + g1 * 128 + lane
     r2 = base + torch.clamp_max(g2, groups - 1) * 128 + lane
     s = torch.cat([mn1, mn2], dim=-1).reshape(nq, nb * 256)
     r = torch.cat([r1, r2], dim=-1).reshape(nq, nb * 256)
     return s, r
+
+
+def _fused_scan_ref(q8, qsc, x8, rs, bias, block_rows: int, coef: float):
+    """Block pass: ``(s, r)`` float32/int32 ``[Q, N/block_rows*256]``; per
+    block ``[mn1 (128 lanes) | mn2 (128 lanes)]``."""
+    acc = int8_dot(q8, x8).float()
+    sel = bias[None, :] + coef * ((acc * qsc[:, None]) * rs[None, :])
+    return _bucket_top2(sel, block_rows)
 
 
 def _fused_scan8_ref(q8, qsc, x8, rs, bias, block_rows: int, coef: float):

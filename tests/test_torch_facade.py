@@ -172,8 +172,9 @@ def test_params_hash_equal_jax(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'n_subvectors': 8}, {'n_cells': 4}, {'n_components': 16},
-    {'index_type': 'graph'}, {'index_type': 'pq_scan'},
+    {'n_components': 16}, {'n_subvectors': 8, 'use_opq': True},
+    {'index_type': 'graph'}, {'index_type': 'sharded_pq'},
+    {'index_type': 'sharded_flat'},
 ])
 def test_unported_configurations_raise(tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
