@@ -14,6 +14,7 @@ import torch
 
 from .codecs import PQCodec, VQCodec
 from .index.flat import FlatIndex
+from .index.graph import GraphIndex
 from .index.ivf_pq import IVFPQIndex
 from .index.pq_scan import PQScanIndex
 
@@ -95,5 +96,20 @@ def ivf_pq_index_from_jax_state(state: Mapping[str, np.ndarray], pq_codec: PQCod
     ``device``) go to the constructor."""
     _kind(state, 'ivf_pq')
     index = IVFPQIndex(pq_codec.dim, pq_codec, **index_kwargs)
+    index.load_state_arrays(state)
+    return index
+
+
+def graph_index_from_jax_state(state: Mapping[str, np.ndarray],
+                               pq_codec: Optional[PQCodec] = None,
+                               **index_kwargs) -> GraphIndex:
+    """A :class:`GraphIndex` from a graph index's ``state_arrays()``
+    (vectors, adjacency, alive); ``index_kwargs`` (``metric``,
+    ``max_degree``, ``ef_search``, ``rerank``, ``traverse``, ``device``, ...)
+    go to the constructor.  A W-wide adjacency of the JAX package's device
+    build is consolidated to each row's ``max_degree`` nearest neighbours."""
+    _kind(state, 'graph')
+    dim = np.asarray(state['vectors']).shape[1]
+    index = GraphIndex(dim, pq_codec=pq_codec, **index_kwargs)
     index.load_state_arrays(state)
     return index

@@ -2,11 +2,13 @@
 
 A default ``AnnLite`` runs the flat index; ``n_subvectors`` adds a PQ codec
 and ``index_type='auto'`` resolves to the PQ scan, and with ``n_cells > 1``
-also a VQ coarse quantizer and the IVF-PQ index.  Codec-backed indexes are
+also a VQ coarse quantizer and the IVF-PQ index.  ``index_type='graph'``
+runs the graph index (host Vamana build, beam search on the device), scored
+with a PQ codec when ``n_subvectors`` is given.  Codec-backed indexes are
 built once the codecs are trained (``train``, or ``partial_train`` +
 ``build_codebooks``, or codecs found in the model directory).  The projector
-and OPQ codecs (``n_components``, ``use_opq``) and the graph and sharded
-index types are not ported yet (ROADMAP queue 1): asking for one raises
+and OPQ codecs (``n_components``, ``use_opq``) and the sharded index types
+are not ported yet (ROADMAP queue 1): asking for one raises
 ``NotImplementedError``.
 
 Snapshots, codec files and ``params_hash`` match the JAX package's, so one
@@ -25,13 +27,14 @@ import torch
 
 from .codecs import PQCodec, VQCodec
 from .container import CellContainer
-from .convert import (flat_index_from_jax_state, ivf_pq_index_from_jax_state,
-                      pq_scan_index_from_jax_state)
+from .convert import (flat_index_from_jax_state, graph_index_from_jax_state,
+                      ivf_pq_index_from_jax_state, pq_scan_index_from_jax_state)
 from .device import resolve_device
 from .doc import Doc, docs_to_embeddings
 from .enums import ExpandMode, Metric, parse_metric
 from .helper import setup_logging
 from .index.flat import FlatIndex
+from .index.graph import GraphIndex
 from .index.ivf_pq import IVFPQIndex
 from .index.pq_scan import PQScanIndex
 from .math import cdist, top_k
@@ -65,18 +68,22 @@ class AnnLite:
         scan_mode: str = 'int8',
         index_type: str = 'auto',
         use_opq: bool = False,
+        max_degree: int = 32,
+        ef_construction: int = 64,
+        ef_search: int = 64,
+        graph_build_mode: str = 'host',
+        auto_compact_dead_fraction: Optional[float] = None,
         n_assign: int = 1,
         assign_margin: float = 0.05,
         device: Optional[Union[str, torch.device]] = None,
     ):
         if index_type not in INDEX_TYPES:
             raise ValueError(f'unknown index_type {index_type!r}')
-        if n_components or use_opq or index_type == 'graph' or index_type.startswith(
-                'sharded'):
+        if n_components or use_opq or index_type.startswith('sharded'):
             raise NotImplementedError(
                 'annlite_torch does not port the projector and OPQ codecs '
-                '(n_components, use_opq) nor the graph and sharded index types '
-                'yet (ROADMAP queue 1)')
+                '(n_components, use_opq) nor the sharded index types yet '
+                '(ROADMAP queue 1)')
         self.logger = setup_logging(verbose)
         self.n_dim = n_dim
         self.metric = parse_metric(metric)
@@ -105,6 +112,14 @@ class AnnLite:
         self.scan_mode = scan_mode
         self.index_type = index_type
         self.use_opq = use_opq
+        # graph knobs: degree bound and build beam of the Vamana graph, the
+        # search beam (ef), the build ('host' only), and the dead fraction
+        # above which a delete compacts the index
+        self.max_degree = max_degree
+        self.ef_construction = ef_construction
+        self.ef_search = ef_search
+        self.graph_build_mode = graph_build_mode
+        self.auto_compact_dead_fraction = auto_compact_dead_fraction
         self.device = resolve_device(device)
 
         if columns is None and filterable_attrs:
@@ -176,6 +191,11 @@ class AnnLite:
         kind = self._kind()
         if kind in ('pq_scan', 'ivf_pq') and self._pq_codec is None:
             raise ValueError(f'index_type={kind} requires n_subvectors')
+        if kind == 'graph':
+            return dict(metric=self.metric, max_degree=self.max_degree,
+                        l_build=self.ef_construction, ef_search=self.ef_search,
+                        rerank=self.rerank, build_mode=self.graph_build_mode,
+                        device=self.device)
         if kind == 'ivf_pq':
             return dict(rerank=self.rerank, device=self.device)
         if kind == 'pq_scan':
@@ -186,6 +206,8 @@ class AnnLite:
 
     def _new_index(self):
         kind = self._kind()
+        if kind == 'graph':
+            return GraphIndex(self.n_dim, pq_codec=self._pq_codec, **self._index_kwargs())
         if kind == 'ivf_pq':
             return IVFPQIndex(self.n_dim, self._pq_codec, **self._index_kwargs())
         if kind == 'pq_scan':
@@ -308,6 +330,22 @@ class AnnLite:
         self._check_writable()
         ids = [d.id if isinstance(d, Doc) else d for d in docs]
         self._container.delete(ids, raise_errors_on_not_found)
+        self._maybe_auto_compact()
+
+    def _maybe_auto_compact(self):
+        """Reclaim soft-deleted rows once the dead fraction exceeds
+        ``auto_compact_dead_fraction`` (the graph keeps dead nodes in its
+        adjacency until compaction)."""
+        thr = self.auto_compact_dead_fraction
+        if thr is None:
+            return
+        dead = getattr(self._container.index, 'dead_fraction', None)
+        if dead is None:
+            alive = self._container._alive
+            dead = float((~alive).sum()) / len(alive) if len(alive) else 0.0
+        if dead > thr:
+            self.logger.info(f'auto-compact: dead fraction {dead:.2f} > {thr:.2f}')
+            self.compact()
 
     # ------------------------------------------------------------------
     # search
@@ -372,15 +410,19 @@ class AnnLite:
         (dists [Q, limit], global_rows [Q, limit])`` as tensors on the
         device, with no host transfer of the corpus — the serving hot path.
         Returns GLOBAL ROWS (map them to doc ids with :meth:`rows_to_docids`).
-        Only the flat index has one, as in the JAX package.  The flat index
-        does not track deletes itself, so the container's alive bitmap is
-        fused into the captured mask: deleted docs never surface.  Rebuild
-        after writes."""
+        The flat and graph indexes have one, as in the JAX package.  The
+        graph tracks its deletes itself and takes no mask; the flat index
+        does not, so the container's alive bitmap is fused into the captured
+        mask: deleted docs never surface.  Rebuild after writes."""
         self._check_trained()
         idx = self._container.index
         if not hasattr(idx, 'device_searcher'):
             raise NotImplementedError(
                 f'{type(idx).__name__} has no device-resident searcher')
+        if hasattr(idx, 'delete_rows'):
+            if mask is not None:
+                raise ValueError(f'{type(idx).__name__}.device_searcher takes no mask')
+            return idx.device_searcher(limit=limit)
         alive = self._container._alive
         if mask is None:
             mask = alive
@@ -418,6 +460,20 @@ class AnnLite:
             return flat
         w = rows.shape[-1]
         return [flat[i : i + w] for i in range(0, len(flat), w)]
+
+    def check_integrity(self) -> dict:
+        """Index-health report (hnswlib's ``checkIntegrity``).  For the graph:
+        reachability, degrees, invalid edges, dead fraction — run it after a
+        restore to validate a snapshot.  Other indexes report size
+        consistency."""
+        idx = self._container.index
+        if hasattr(idx, 'check_integrity'):
+            return idx.check_integrity()
+        return {
+            'n': int(idx.size),
+            'table_rows': int(self._container.cell_table.size),
+            'ok': int(idx.size) >= int(self._container.cell_table.size),
+        }
 
     def filter(
         self,
@@ -552,6 +608,9 @@ class AnnLite:
         if kind != self._kind():
             raise ValueError(
                 f'snapshot holds a {kind!r} index, this AnnLite serves {self._kind()!r}')
+        if kind == 'graph':
+            return graph_index_from_jax_state(state, self._pq_codec,
+                                              **self._index_kwargs())
         if kind == 'pq_scan':
             return pq_scan_index_from_jax_state(state, self._pq_codec,
                                                 **self._index_kwargs())

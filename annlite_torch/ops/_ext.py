@@ -41,6 +41,12 @@ SIGNATURES = {
         'annlite_ivf_scores': [_P] * 4 + [_I] * 6 + [_P],
         'annlite_ivf_block_top2': [_P] * 6 + [_I] * 6 + [_P],
     },
+    'lut_pq': {
+        'annlite_lut_pq_scores': [_P] * 4 + [_I] * 6 + [_P],
+    },
+    'adc_i8': {
+        'annlite_adc_i8_scores': [_P] * 6 + [_I] * 5 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,12 @@ running top-8 per lane class.  Beside each sits its plain PyTorch version
 0..M-1 in float32 as the kernels do: scores and rows are bit-equal.  The TPU
 kernels' one-hot products with a bf16 table are not carried over; the port
 computes what the JAX references (``adc_scores_ref``) compute, in float32.
+
+The graph's PQ traversal scores each query's own candidates instead
+(``adc_scores_per_query``, ``lut_pq_scores``): K8 (``csrc/lut_pq.cu``)
+gathers each candidate's row of the row-major codes ``[N, M]`` and sums its
+table entries, in order 0..M-1 as ``adc_scores_per_query_ref`` does.
+
 The wrappers take the plain version for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
 """
@@ -94,6 +100,39 @@ def _adc_block_top2_ref(dtable, codes_t, mask, block_n: int):
     return _bucket_top2(_adc_scores_ref(dtable, codes_t, mask), block_n)
 
 
+def _widen(codes: torch.Tensor) -> torch.Tensor:
+    """Codes as int64 for indexing; uint16 goes through an int16 view (the
+    same bits), which PyTorch can gather where it cannot gather uint16."""
+    if codes.dtype == torch.uint16:
+        return codes.view(torch.int16).long() & 0xFFFF
+    return codes.long()
+
+
+def adc_scores_per_query_ref(dtable: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``dtable [Q, M, K] x codes [Q, C, M] -> [Q, C]`` float32, summed over
+    m in order 0..M-1 (K8's order)."""
+    c = _widen(codes)
+    q, m, _ = dtable.shape
+    acc = torch.zeros(c.shape[:2], dtype=torch.float32, device=dtable.device)
+    for j in range(m):
+        acc = acc + torch.gather(dtable[:, j, :].float(), 1, c[:, :, j])
+    return acc
+
+
+def _lut_pq_scores_ref(ids, codes, dtable):
+    """Plain version of ``lut_pq_scores``: the codes of rows ``ids [Q, C]``
+    of ``codes [N, M]`` scored against ``dtable [Q, M, K]``; BIG where an id
+    lies outside ``[0, N)``."""
+    n = codes.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    safe = torch.where(valid, ids, 0).long()
+    if codes.dtype == torch.uint16:  # gathered through the int16 view
+        rows = codes.view(torch.int16)[safe].long() & 0xFFFF
+    else:
+        rows = codes[safe].long()  # [Q, C, M]
+    return torch.where(valid, adc_scores_per_query_ref(dtable, rows), BIG)
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -152,6 +191,60 @@ def adc_block_top2(dtable, codes_t, mask, block_n: int):
 
 
 adc_block_top2.launches = 0
+
+
+def lut_pq_kernel(ids, codes, dtable):
+    """Launch ``lut_pq_scores`` (K8, `csrc/lut_pq.cu`) -> float32 ``[Q, C]``
+    as :func:`_lut_pq_scores_ref`."""
+    for t in (ids, codes, dtable):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError('lut_pq_scores: expected contiguous CUDA tensors')
+    q, m, k = dtable.shape
+    if (ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != q
+            or dtable.dtype != torch.float32 or codes.dim() != 2 or codes.shape[1] != m
+            or codes.shape[0] >= 2**31):
+        raise ValueError('lut_pq_scores: unsupported inputs')
+    if not supports_adc(k):
+        raise ValueError(f'lut_pq_scores: K = {k} codewords exceed the kernel limit '
+                         f'K <= {MAX_ADC_CLUSTERS}')
+    c = ids.shape[1]
+    out = torch.empty((q, c), dtype=torch.float32, device=dtable.device)
+    if q == 0 or c == 0:
+        return out
+    lib = _ext.library('lut_pq')
+    with torch.cuda.device(dtable.device):
+        _ext.check(lib.annlite_lut_pq_scores(
+            ids.data_ptr(), codes.data_ptr(), dtable.data_ptr(), out.data_ptr(),
+            q, c, codes.shape[0], m, k, _code_bytes(codes), _ext.stream_ptr(dtable)),
+            'lut_pq_scores')
+    lut_pq_kernel.launches += 1
+    return out
+
+
+lut_pq_kernel.launches = 0
+
+
+def lut_pq_scores(ids: torch.Tensor, codes: torch.Tensor, dtable: torch.Tensor) -> torch.Tensor:
+    """The graph's PQ scorer (`ops/beam.py` ``make_pq_scorer``): rows ``ids
+    [Q, C]`` of ``codes [N, M]`` (row-major) against ``dtable [Q, M, K]`` ->
+    float32 ``[Q, C]``, BIG where an id lies outside ``[0, N)``.  K8 fuses
+    the row gather and the mask that the TPU did outside its kernel."""
+    if codes.device.type == 'cpu':
+        return _lut_pq_scores_ref(ids, codes, dtable)
+    return lut_pq_kernel(ids.to(torch.int32).contiguous(), codes.contiguous(),
+                         dtable.float().contiguous())
+
+
+def adc_scores_per_query(dtable: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC scores of per-query candidate codes: ``dtable [Q, M, K] x codes
+    [Q, C, M]`` (uint8 or uint16) -> float32 ``[Q, C]``.  On the card K8
+    runs over ``codes`` viewed as ``[Q*C, M]`` rows with ``ids = q*C + c``;
+    the JAX function pads C to 128, the kernel needs no padding."""
+    if codes.device.type == 'cpu':
+        return adc_scores_per_query_ref(dtable, codes)
+    q, c, m = codes.shape
+    ids = torch.arange(q * c, dtype=torch.int32, device=codes.device).view(q, c)
+    return lut_pq_scores(ids, codes.reshape(q * c, m), dtable)
 
 
 def _mask_row(mask: Optional[torch.Tensor], n: int, device) -> torch.Tensor:

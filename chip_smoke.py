@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``annlite_torch/csrc`` (``nvcc``, one process
-per source, all at once), then runs seven phases, each printing one JSON line:
+per source, all at once), then runs nine phases, each printing one JSON line:
 
 1. ``build``: build time, the card's name and ``nvidia-smi``'s name and power
    limit;
@@ -15,8 +15,12 @@ per source, all at once), then runs seven phases, each printing one JSON line:
    M = 64, K = 256, u8 codes, N = 2^20 with 1, 64 and 100 queries, masked
    and unmasked, once at K = 1024 with u16 codes (the m-tiled table), and
    the IVF kernels on 1024 blocks of 1024 slots with probe sets of 1, 8 and
-   32 cells padded with -1.  Rows equal and scores bit-equal for the scan
-   and ADC kernels, the stated tolerance for the rerank kernel;
+   32 cells padded with -1; ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
+   and 1, C = 256 and 512, M = 64/K = 256 u8 and K = 1024 u16 at M = 16 and
+   64 (m-tiled), with ids -1, N and NO_ID; ``adc_scores_i8`` (K9) at the ADC
+   shapes, also within 1% of K5, and once through its entry point.  Rows
+   equal and scores bit-equal for the scan, ADC and table kernels, the
+   stated tolerance for the rerank kernel;
 3. ``flat``: ``scan_topk`` at N = 16384 (the block2 select), then a
    2^20 x 768 cosine ``FlatIndex``: recall@10 against a float32 brute force,
    batch 1 against row 0 of batch 64, batch-64 and batch-1 latency, masked
@@ -33,7 +37,19 @@ per source, all at once), then runs seven phases, each printing one JSON line:
    and batch 1 / n_probe 1;
 7. ``facade_pq``: ``AnnLite`` over phase 4's docs with ``n_subvectors=64``,
    then with ``n_cells=64`` as well: train, index, self-hits, a filtered
-   search, updates and deletes, encode/decode, dump and reopen.
+   search, updates and deletes, encode/decode, dump and reopen;
+8. ``graph``: the JAX package's ``bench.py`` graph recipe, 131,072 x 128
+   clustered rows, a host Vamana build (R 32, l_build 64) on every host
+   thread, ef 128, beam width 8: recall@10 >= 0.95 with vector traversal,
+   >= 0.90 with PQ64 table traversal (K8) and rerank 100 (rerank 0, int8
+   and packed traversal printed), 50% and 5% masks (the 5% one equals the
+   exact masked scan), soft deletes, ``device_searcher`` against
+   ``search``, latency of each traversal and K8's share of a PQ search;
+9. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
+   of phase 4's docs, without a codec and with ``n_subvectors=64,
+   rerank=0`` (K8 through the facade): self-hits, a filtered search,
+   in-place updates, deletes, ``check_integrity``, ``serving_searcher``
+   against ``search_numpy``, dump and reopen.
 
 Each main-path run resets the kernels' launch counters just before it and
 reads them just after; a kernel of the path that was never launched fails the
@@ -42,6 +58,7 @@ two; the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that line.  Needs one card; imports nothing of JAX.
 """
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -99,11 +116,14 @@ def main() -> int:
     from annlite_torch.doc import Doc
     from annlite_torch.enums import Metric
     from annlite_torch.index.flat import FlatIndex
+    from annlite_torch.index.graph import GraphIndex
     from annlite_torch.index.ivf_pq import IVFPQIndex
     from annlite_torch.index.pq_scan import PQScanIndex
     from annlite_torch.math import cdist, l2_normalize, top_k
     from annlite_torch.ops import _ext
     from annlite_torch.ops import adc as ad
+    from annlite_torch.ops import adc_i8 as ai
+    from annlite_torch.ops import beam as bm
     from annlite_torch.ops import fused_scan as fs
     from annlite_torch.ops import gather as ga
     from annlite_torch.ops import ivf as iv
@@ -112,7 +132,8 @@ def main() -> int:
     kernels = {'block_top2': fs.block_top2, 'lane8_merge': fs.lane8_merge,
                'gather_rerank': ga.gather_rerank,
                'adc_scores': ad.adc_scores_kernel, 'adc_block_top2': ad.adc_block_top2,
-               'ivf_scores': iv.ivf_scores, 'ivf_block_top2': iv.ivf_block_top2}
+               'ivf_scores': iv.ivf_scores, 'ivf_block_top2': iv.ivf_block_top2,
+               'lut_pq_scores': ad.lut_pq_kernel, 'adc_scores_i8': ai.adc_i8_kernel}
     main_launches = {k: 0 for k in kernels}
 
     def drive(path_name: str, expected, fn):
@@ -380,6 +401,53 @@ def main() -> int:
                       dt_all[:nq_].contiguous(), cb_ivf, mb_ivf)
     del cb_ivf, mb_ivf
 
+    # K8 at the graph path's shapes: N = 131,072 rows of row-major codes, a
+    # beam of C = B*R = 256 (B 8, R 32) and 512 (B 16) candidates, Q = 64
+    # and 1; M = 64, K = 256 u8, then K = 1024 u16 at M = 16 and at M = 64
+    # (a 256 KB table, tiled over subspaces).  Ids -1, N and NO_ID score BIG.
+    ng = 131072
+
+    def check_lut(tag, ids, codes, dt):
+        tag = f'{tag} q={ids.shape[0]} c={ids.shape[1]}'
+        out = ad.lut_pq_kernel(ids, codes, dt)
+        ref = ad._lut_pq_scores_ref(ids, codes, dt)
+        if not (torch.equal(out, ref) and bool((out[:, :3] == 3.4e38).all())):
+            fail(f'lut_pq_scores {tag}: scores differ from the plain version')
+        err['lut_pq_scores'] = max(err['lut_pq_scores'], maxerr(out, ref))
+        checks.append(f'lut_pq_scores {tag}: scores bit-equal, invalid ids BIG')
+
+    for lm, lk, ldt in ((64, 256, torch.uint8), (16, 1024, torch.uint16),
+                        (64, 1024, torch.uint16)):
+        codes_l = torch.randint(0, lk, (ng, lm), device=dev, generator=g,
+                                dtype=torch.int32).to(ldt)
+        for nq_ in (64, 1):
+            for c_ in (256, 512):
+                ids = torch.randint(0, ng, (nq_, c_), device=dev, generator=g,
+                                    dtype=torch.int32)
+                ids[:, :3] = torch.tensor([-1, ng, bm.NO_ID], dtype=torch.int32, device=dev)
+                dt = torch.rand((nq_, lm, lk), device=dev, generator=g) * 10
+                check_lut(f'n=131072 m={lm} k={lk} {str(ldt)[6:]}', ids, codes_l, dt)
+        if lk == 256:
+            codes_g = codes_l
+    del codes_l
+    # K8's time at Q = 64, C = 256, M = 64, K = 256; the library yardstick is
+    # one embedding_bag over the gathered codes offset by (q*M + m)*K
+    ids_g = torch.randint(0, ng, (64, 256), device=dev, generator=g, dtype=torch.int32)
+    dt_g = torch.rand((64, pm, pk), device=dev, generator=g) * 10
+    lbag_idx = (codes_g[ids_g.long()].long() + torch.arange(pm, device=dev) * pk
+                + (torch.arange(64, device=dev) * pm * pk)[:, None, None]).reshape(64 * 256, pm)
+    lbag_w = dt_g.reshape(-1, 1)
+    lbag = torch.nn.functional.embedding_bag(lbag_idx, lbag_w, mode='sum').reshape(64, 256)
+    if not torch.allclose(lbag, ad._lut_pq_scores_ref(ids_g, codes_g, dt_g), rtol=1e-5):
+        fail('embedding_bag does not compute the per-query ADC scores')
+    lut_times = (cuda_ms(lambda: ad.lut_pq_kernel(ids_g, codes_g, dt_g)),
+                 cuda_ms(lambda: ad._lut_pq_scores_ref(ids_g, codes_g, dt_g)))
+    lut_library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        lbag_idx, lbag_w, mode='sum'))
+    lut_bound = bound(64 * pm * pk * 4 + 64 * 256 * 4 + 64 * 256 * pm + 64 * 256 * 4,
+                      64.0 * 256 * pm, FP32_OPS_PER_S)
+    del codes_g, ids_g, dt_g, lbag_idx, lbag_w, lbag
+
     # the ADC kernels' times at the PQ path's shape (Q = 64, N = 2^20); the
     # library yardstick for K5 is one embedding_bag over the codes offset by
     # m * K (the same sums in another order)
@@ -407,6 +475,49 @@ def main() -> int:
                                 64.0 * npq * pm, FP32_OPS_PER_S),
     }
     k4_merge_bound = merge_bound(64, nb_pq)
+
+    # K9 at the ADC shapes (N = 2^20, M = 64, K = 256, u8), Q = 1, 64 and
+    # 100, masked and unmasked: bit-equal to its plain version, and within
+    # 1% of K5's largest score (the int8 table's rounding)
+    i8_rel = 0.0
+    for nq_ in (1, 64, 100):
+        dt = dt_all[:nq_].contiguous()
+        t8, sc8, off8 = ai.quantize_dtable(dt)
+        sc8, off8 = sc8[:, 0].contiguous(), off8[:, 0].contiguous()
+        for mtag, mk in (('unmasked', ones_pq), ('mask 50%', keep_pq)):
+            out = ai.adc_i8_kernel(t8, codes_pq, mk, sc8, off8)
+            if not torch.equal(out, ai._adc_scores_i8_ref(t8, codes_pq, mk, sc8, off8)):
+                fail(f'adc_scores_i8 q={nq_} {mtag}: scores differ from the plain version')
+            k5 = ad.adc_scores_kernel(dt, codes_pq, mk)
+            keep = mk > 0
+            rel = ((out - k5)[:, keep].abs().max() / k5[:, keep].abs().max()).item()
+            if not rel < 0.01 or not torch.equal(out[:, ~keep], k5[:, ~keep]):
+                fail(f'adc_scores_i8 q={nq_} {mtag}: {rel} of K5\'s largest score')
+            i8_rel = max(i8_rel, rel)
+            checks.append(f'adc_scores_i8 n=2^20 m=64 k=256 u8 {mtag} q={nq_}: '
+                          'scores bit-equal, within 1% of K5')
+    del out, k5, keep
+    t8, sc8, off8 = ai.quantize_dtable(dt64)
+    sc8, off8 = sc8[:, 0].contiguous(), off8[:, 0].contiguous()
+    # library yardstick: K5's embedding_bag over the int8 table widened to
+    # float32 (exact integer sums: |acc| <= 127 * M < 2^24)
+    bag_w8 = t8.float().permute(1, 2, 0).reshape(pm * pk, 64).contiguous()
+    bag8 = torch.nn.functional.embedding_bag(bag_idx, bag_w8, mode='sum')
+    if not torch.equal(bag8.T * sc8[:, None] + off8[:, None],
+                       ai._adc_scores_i8_ref(t8, codes_pq, ones_pq, sc8, off8)):
+        fail('embedding_bag does not compute the int8-table scores')
+    i8_times = (cuda_ms(lambda: ai.adc_i8_kernel(t8, codes_pq, ones_pq, sc8, off8)),
+                cuda_ms(lambda: ai._adc_scores_i8_ref(t8, codes_pq, ones_pq, sc8, off8), 5))
+    i8_library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        bag_idx, bag_w8, mode='sum'))
+    i8_bound = bound(npq * pm + 64 * pm * pk + npq + 64 * npq * 4 + 64 * 8,
+                     64.0 * npq * pm, FP32_OPS_PER_S)
+    # K9's own entry point, adc_scores_i8, as a user calls it
+    s_i8, i8_counts = drive('adc_scores_i8 q=64 n=2^20', ['adc_scores_i8'],
+                            lambda: ai.adc_scores_i8(dt64, codes_pq, keep_pq))
+    if s_i8.shape != (64, npq) or not bool(torch.isfinite(s_i8).all()):
+        fail('adc_scores_i8: result of the wrong shape or not finite')
+    del t8, sc8, off8, bag_w8, bag8, s_i8
     del dt_all, codes_pq, keep_pq, ones_pq, bag_idx, bag_w, bag, dt64
 
     cos_bias = cases[0][1]
@@ -431,6 +542,10 @@ def main() -> int:
     }
     times.update(adc_times)
     bounds.update(adc_bounds)
+    times['lut_pq_scores'], bounds['lut_pq_scores'] = lut_times, lut_bound
+    times['adc_scores_i8'], bounds['adc_scores_i8'] = i8_times, i8_bound
+    library_ms['lut_pq_scores'] = lut_library_ms
+    library_ms['adc_scores_i8'] = i8_library_ms
     emit({'phase': 'kernels_vs_plain', 'checks': checks,
           'max_abs_err': err,
           'ms': {k: v[0] for k, v in times.items()},
@@ -441,8 +556,11 @@ def main() -> int:
           'k1_block_top2_plus_lane8_merge_ms': k1_ms,
           'k4_adc_block_top2_plus_lane8_merge_ms': k4_ms,
           'k4_lane8_merge_bound_ms': k4_merge_bound,
+          'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel,
+          'adc_scores_i8_entry_point_launches': i8_counts,
           'shapes': 'Q=64 D=768; block_top2/lane8_merge N=2^20; gather R=40; '
-                    'adc_* Q=64 N=2^20 M=64 K=256 u8'})
+                    'adc_* Q=64 N=2^20 M=64 K=256 u8; lut_pq_scores Q=64 C=256 '
+                    'N=131072 M=64 K=256 u8'})
     del x8, xs, norms, cases, cos_bias, s_blk, r_blk, cand, s, r
     del x
 
@@ -791,17 +909,235 @@ def main() -> int:
           'self_hits_16': 16, 'filtered_ok': True, 'deleted_never_returned': True,
           'reopen_equal': True, **facade_pq})
 
+    # ---------------- 8. graph search (bench.py ph_graph) ----------------
+    # bench.py's _graph_corpus: 131,072 x 128 euclidean rows, 1024 centres x
+    # 2.0 plus unit noise (numpy seed 1234); a host Vamana build (R 32,
+    # l_build 64) on every host thread; ph_graph's queries (seed 77: 64
+    # corpus rows plus 0.1 noise); ef 128, beam width 8, 4096 sampled entries
+    # of which 8 seed each query.  The other traversals load the same graph.
+    gn = 131072
+    grng = np.random.default_rng(1234)
+    gcent = (grng.standard_normal((1024, d2)) * 2.0).astype(np.float32)
+    gx = (gcent[grng.integers(0, 1024, gn)] + grng.standard_normal((gn, d2))).astype(np.float32)
+    rq = np.random.default_rng(77)
+    gq = (gx[rq.integers(0, gn, nq)] + 0.1 * rq.standard_normal((nq, d2))).astype(np.float32)
+    gkw = dict(metric='euclidean', max_degree=32, l_build=64, ef_search=128, beam_width=8,
+               n_entry_samples=4096, entry_width=8)
+    t0 = time.perf_counter()
+    gbase = GraphIndex(d2, **gkw)
+    gbase.add_with_ids(gx, np.arange(gn))
+    graph_build_s = time.perf_counter() - t0
+    graph_integrity = gbase.check_integrity()
+    if not graph_integrity['ok']:
+        fail(f'graph: the host build fails its integrity check {graph_integrity}')
+    gstate = gbase.state_arrays()
+    t0 = time.perf_counter()
+    gpq = PQCodec(d2, n_subvectors=64, n_clusters=256, metric='euclidean', n_init=1)
+    gpq.fit(gx[:20000], iter=15)
+    gpq_train_s = time.perf_counter() - t0
+    gidx = {'vectors': gbase}
+    for name, kw in (('pq_rerank0', dict(pq_codec=gpq, rerank=0, traverse='pq')),
+                     ('pq_rerank100', dict(pq_codec=gpq, rerank=100, traverse='pq')),
+                     ('int8', dict(traverse='int8')), ('packed', dict(traverse='packed'))):
+        gidx[name] = GraphIndex(d2, **gkw, **kw)
+        gidx[name].load_state_arrays(gstate)
+    gxd = torch.from_numpy(gx).to(dev)
+    gsq = torch.sum(gxd * gxd, dim=1)
+
+    def gbrute(qv, mask=None, k=10):
+        """Exact float32 L2 top-k rows of the graph corpus (under a mask),
+        in the operations of the graph's exact-scan fallback."""
+        qd = torch.from_numpy(qv).to(dev)
+        dd = torch.sum(qd * qd, dim=1)[:, None] + gsq[None, :] - 2.0 * (qd @ gxd.T)
+        if mask is not None:
+            dd = torch.where(torch.from_numpy(mask).to(dev)[None, :], dd, 3.4e38)
+        return torch.sort(dd, dim=1, stable=True).indices[:, :k].cpu().numpy()
+
+    ggt = gbrute(gq)
+    mrng = np.random.default_rng(SEED + 2)
+    gmasks = {sel: mrng.random(gn) < sel for sel in (0.5, 0.05)}
+    gq_t = torch.from_numpy(gq).to(dev)
+
+    def graph_path():
+        out = {name: idx.search(gq, 10) for name, idx in gidx.items()}
+        for sel, m in gmasks.items():
+            out[sel] = gbase.search(gq, 10, mask=m)
+        out['searcher'] = {name: idx.device_searcher(limit=10)(gq_t)
+                           for name, idx in gidx.items()}
+        return out
+
+    gres, graph_counts = drive('graph 131072 x 128', ['lut_pq_scores'], graph_path)
+    graph_recall = {name: recall_at_10(gres[name][1], ggt) for name in gidx}
+    for name in gidx:
+        dd, ii = gres[name]
+        if dd.shape != (nq, 10) or not np.isfinite(dd).all():
+            fail(f'graph {name}: result of shape {dd.shape} or not finite')
+        if not np.array_equal(gres['searcher'][name][1].cpu().numpy(), ii):
+            fail(f'graph {name}: device_searcher ids differ from search')
+    if graph_recall['vectors'] < 0.95 or graph_recall['pq_rerank100'] < 0.90:
+        fail(f'graph recall@10 {graph_recall} below 0.95 (vectors) or 0.90 (PQ, rerank 100)')
+    for sel, m in gmasks.items():
+        dd, ii = gres[sel]
+        if not m[ii[dd < 1e37]].all():
+            fail(f'graph mask {sel}: a returned row lies outside the mask')
+    # below filter_fallback_selectivity the search is the exact masked scan
+    if not np.array_equal(gres[0.05][1], gbrute(gq, gmasks[0.05])):
+        fail('graph mask 0.05: the exact-scan fallback differs from a masked brute force')
+    # soft deletes: each query's own best row is deleted and never returned
+    gdel = GraphIndex(d2, **gkw)
+    gdel.load_state_arrays(gstate)
+    dead = np.unique(gres['vectors'][1][:, 0])
+    gdel.delete_rows(dead)
+    _, ids_del = gdel.search(gq, 10)
+    _, ids_del_sv = gdel.device_searcher(limit=10)(gq_t)
+    if np.isin(ids_del, dead).any() or np.isin(ids_del_sv.cpu().numpy(), dead).any():
+        fail('graph: a deleted row was returned')
+    del gdel
+    # latency of each traversal (device_searcher, host clock), and K8's
+    # share of a PQ search: its launches in one search times its time
+    graph_lat, k8_share = {}, {}
+    for name, idx in gidx.items():
+        run = idx.device_searcher(limit=10)
+        graph_lat[f'{name}_batch64_ms'] = host_ms(lambda: run(gq_t), reps=10)
+        graph_lat[f'{name}_batch1_ms'] = host_ms(lambda: run(gq_t[:1]), reps=10)
+        if name.startswith('pq'):
+            ad.lut_pq_kernel.launches = 0
+            run(gq_t)
+            n8 = ad.lut_pq_kernel.launches
+            k8_share[name] = {'launches_per_search': n8,
+                              'k8_ms_x_launches': n8 * lut_times[0],
+                              'share_of_batch64': n8 * lut_times[0]
+                              / graph_lat[f'{name}_batch64_ms']}
+    # where a PQ search's device time goes, by operator
+    run = gidx['pq_rerank100'].device_searcher(limit=10)
+    run(gq_t)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:  # a measurement aid: a profiler that cannot trace fails no check
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            run(gq_t)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        ka = prof.key_averages()
+        kern = [e for e in ka if e.self_device_time_total > 0]
+        ops = sorted((e for e in ka if e.key.startswith('aten::') and e.device_time_total > 0),
+                     key=lambda e: -e.device_time_total)
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        graph_profile = {
+            'wall_ms_profiled': wall_ms, 'device_busy_ms': busy,
+            'device_idle_share': 1.0 - busy / wall_ms,
+            'kernel_launches': sum(e.count for e in kern),
+            'lut_pq_ms': sum(e.self_device_time_total for e in kern if 'lut_pq' in e.key) / 1e3,
+            'top_aten_ops_device_ms': [(e.key, e.count, e.device_time_total / 1e3)
+                                       for e in ops[:10]]}
+    except Exception as e:  # noqa: BLE001
+        graph_profile = {'error': repr(e)}
+    emit({'phase': 'graph', 'n': gn, 'dim': d2, 'max_degree': 32, 'l_build': 64,
+          'ef': 128, 'beam_width': 8, 'entry_samples': 4096, 'entry_width': 8,
+          'build_s': graph_build_s, 'build_threads': os.cpu_count(),
+          'integrity': graph_integrity, 'pq_train_s': gpq_train_s,
+          'recall_at_10_vs_fp32': graph_recall,
+          'recall_at_10_mask50pct_vs_masked_fp32': recall_at_10(
+              gres[0.5][1], gbrute(gq, gmasks[0.5])),
+          'masked_rows_in_mask': True, 'mask5pct_equals_exact_scan': True,
+          'deleted_never_returned': True, 'searcher_equals_search': True,
+          'latency_ms': graph_lat,
+          'qps_batch64': {k[:-len('_batch64_ms')]: nq / v * 1e3
+                          for k, v in graph_lat.items() if k.endswith('_batch64_ms')},
+          'k8_share': k8_share, 'profile_pq_rerank100_batch64': graph_profile,
+          'launches': graph_counts})
+    del gidx, gbase, gstate, gres, gxd, gsq, run
+    torch.cuda.empty_cache()
+
+    # ---------------- 9. the facade with the graph index ----------------
+    # the first 20,000 of phase 4's docs, without a codec and with PQ64 at
+    # rerank 0 (table traversal through the facade: K8)
+    nfg = 20_000
+
+    def facade_graph_path(kind, data_dir, kw):
+        shutil.rmtree(data_dir, ignore_errors=True)
+        cfg = dict(n_dim=df, metric='euclidean', index_type='graph',
+                   columns=[('price', float)], data_path=data_dir, **kw)
+        ann = AnnLite(**cfg)
+        if ann._requires_training:
+            ann.train(xf[:10240])
+        t = time.perf_counter()
+        ann.index([Doc(id=str(i), embedding=xf[i], tags={'price': float(prices[i])})
+                   for i in range(nfg)])
+        ingest = time.perf_counter() - t
+        _, ids = ann.search_numpy(qf_np[:16], limit=10)
+        hits1 = sum(ids[i][0] == str(i) for i in range(16))
+        hits10 = sum(str(i) in ids[i] for i in range(16))
+        if kind == 'vectors' and hits1 != 16:
+            fail(f'facade_graph {kind}: self-hits {hits1}/16')
+        flt = {'price': {'$lt': 50.0}}
+        for matches in ann.search_by_vectors(qf_np[:8], filter=flt, limit=10,
+                                             include_metadata=True):
+            if not matches or any(m.tags['price'] >= 50.0 for m in matches):
+                fail(f'facade_graph {kind}: filtered search returned a doc outside the filter')
+        upd = np.arange(1000, 1100)
+        ann.update([Doc(id=str(i), embedding=xf[i] + 0.5,
+                        tags={'price': float(prices[i])}) for i in upd])
+        _, ids = ann.search_numpy(xf[upd[:16]] + 0.5, limit=1)
+        upd_hits = sum(row[0] == str(i) for row, i in zip(ids, upd[:16]))
+        if kind == 'vectors' and upd_hits != 16:
+            fail(f'facade_graph {kind}: updated docs do not find themselves')
+        gone = [str(i) for i in range(2000, 2100)]
+        ann.delete(gone)
+        _, ids = ann.search_numpy(xf[2000:2100], limit=10)
+        serve = ann.serving_searcher(limit=10)
+        _, sids = serve(xf[2000:2064])
+        if set(gone) & {i for row in ids + sids for i in row}:
+            fail(f'facade_graph {kind}: a deleted doc was returned')
+        integrity = ann.check_integrity()
+        if not integrity['ok']:
+            fail(f'facade_graph {kind}: check_integrity {integrity}')
+        d_np, ids_np = ann.search_numpy(qf_np, limit=10)
+        _, ids_sv = serve(qf_np)
+        if ids_sv != ids_np:
+            fail(f'facade_graph {kind}: serving_searcher ids differ from search_numpy')
+        search_ms = host_ms(lambda: ann.search_numpy(qf_np, limit=10), reps=10)
+        serve_ms = host_ms(lambda: serve(qf_np), reps=10)
+        ann.dump()
+        ann.close()
+        ann = AnnLite(**cfg)
+        d_re, ids_re = ann.search_numpy(qf_np, limit=10)
+        if ids_re != ids_np or not all(np.array_equal(a, b) for a, b in zip(d_re, d_np)):
+            fail(f'facade_graph {kind}: results differ after dump and reopen')
+        ann.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+        return {'ingest_docs_per_s': nfg / ingest, 'self_hits_at_1_of_16': hits1,
+                'self_hits_at_10_of_16': hits10, 'updated_found_of_16': upd_hits,
+                'reachable_fraction': integrity['reachable_fraction'],
+                'search_numpy_ms_batch64': search_ms, 'serving_ms_batch64': serve_ms}
+
+    facade_graph = {}
+    for kind, kw, expected in (('vectors', {}, []),
+                               ('pq_rerank0', dict(n_subvectors=64, rerank=0),
+                                ['lut_pq_scores'])):
+        out, counts = drive(f'facade_graph {kind}', expected, lambda: facade_graph_path(
+            kind, ROOT / 'build' / f'chip_smoke_graph_{kind}', kw))
+        facade_graph[kind] = dict(out, launches=counts)
+    emit({'phase': 'facade_graph', 'docs': nfg, 'dim': df, 'metric': 'euclidean',
+          'filtered_ok': True, 'deleted_never_returned': True, 'integrity_ok': True,
+          'serving_equals_search_numpy': True, 'reopen_equal': True, **facade_graph})
+
     # ---------------- result ----------------
     src = {'block_top2': 'annlite_torch/csrc/fused_scan.cu',
            'lane8_merge': 'annlite_torch/csrc/fused_scan.cu',
-           'gather_rerank': 'annlite_torch/csrc/gather.cu'}
+           'gather_rerank': 'annlite_torch/csrc/gather.cu',
+           'lut_pq_scores': 'annlite_torch/csrc/lut_pq.cu',
+           'adc_scores_i8': 'annlite_torch/csrc/adc_i8.cu'}
     replaces = {'block_top2': 'annlite_tpu/ops/fused_scan.py:99',
                 'lane8_merge': 'annlite_tpu/ops/fused_scan.py:121',
                 'gather_rerank': 'annlite_tpu/ops/gather.py:31',
                 'adc_scores': 'annlite_tpu/ops/adc.py:67',
                 'adc_block_top2': 'annlite_tpu/ops/adc.py:169',
                 'ivf_scores': 'annlite_tpu/ops/ivf.py:31',
-                'ivf_block_top2': 'annlite_tpu/ops/ivf.py:78'}
+                'ivf_block_top2': 'annlite_tpu/ops/ivf.py:78',
+                'lut_pq_scores': 'annlite_tpu/ops/adc.py:283',
+                'adc_scores_i8': 'annlite_tpu/ops/adc_i8.py:56'}
     emit({'kernels': [
         {'name': k, 'route': 'cuda',
          'source': src.get(k, 'annlite_torch/csrc/adc.cu'), 'replaces': replaces[k],

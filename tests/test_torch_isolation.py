@@ -70,3 +70,32 @@ def test_cpu_search_loads_no_jax():
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cpu_graph_search_loads_no_jax_nor_native_library():
+    """A CPU graph search (vector and PQ-table traversal) loads neither JAX
+    nor a library of native/ or annlite_tpu/: the Vamana builder comes from
+    build/annlite_torch/."""
+    code = textwrap.dedent('''
+        import sys
+        before = set(sys.modules)
+        import numpy as np
+        from annlite_torch.codecs import PQCodec
+        from annlite_torch.index.graph import GraphIndex
+        x = np.random.default_rng(0).standard_normal((400, 16)).astype(np.float32)
+        pq = PQCodec(16, n_subvectors=4, n_clusters=16, n_init=1, device='cpu').fit(x, iter=3)
+        for kw in ({}, dict(pq_codec=pq, rerank=20, traverse='pq')):
+            index = GraphIndex(16, metric='euclidean', device='cpu', **kw)
+            index.add_with_ids(x, np.arange(400))
+            d, i = index.search(x[:3], limit=2)
+            assert list(i[:, 0]) == [0, 1, 2], i
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'annlite_tpu'))
+        libs = {ln.split()[-1] for ln in open('/proc/self/maps') if 'libvamana' in ln}
+        print('BAD', bad, 'LIBS', libs)
+        ok = not bad and len(libs) == 1 and all('/build/annlite_torch/' in p for p in libs)
+        sys.exit(0 if ok else 1)
+    ''')
+    r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
