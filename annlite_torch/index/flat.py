@@ -7,9 +7,11 @@ shortlist against the exact float32 rows: returned distances are exact.  The
 predicate mask is applied before the top-k reduction, so filtered search
 costs the same as unfiltered.
 
-``scan_mode``: 'int8' (default) or 'exact' (a float32 product, no quantized
-copy, for parity debugging).  'int4' and 'bf16' need variants of the fused
-kernel that are not ported yet (ROADMAP).
+``scan_mode``: 'int8' (default), 'int4' (nibble-packed, half the scan
+bytes of int8, with a deeper default shortlist), 'bf16' (no quantization
+scales), or 'exact' (a float32 product, no quantized copy, for parity
+debugging).  Each quantized mode has its own variant of the fused block-pass
+kernel (`ops/fused_scan.py`).
 """
 from typing import Optional, Union
 
@@ -20,7 +22,7 @@ from ..device import resolve_device
 from ..enums import Metric
 from ..math import dot_f32, l2_normalize
 from ..ops import BIG
-from ..ops.scan import quantize_rows_int8, scan_topk
+from ..ops.scan import quantize_rows_int4, quantize_rows_int8, scan_topk
 from ..ops.topk import topk
 from .base import BaseIndex
 from .buffer import DeviceBuffer
@@ -48,12 +50,10 @@ class FlatIndex(BaseIndex):
                  scan_mode: str = 'int8',
                  device: Optional[Union[str, torch.device]] = None, **kwargs):
         super().__init__(dim=dim, metric=metric, **kwargs)
-        if scan_mode in ('int4', 'bf16'):
-            raise NotImplementedError(
-                f'scan_mode={scan_mode!r} is not ported yet (ROADMAP queue 1: '
-                'the int4 and bf16 variants of the fused scan)')
-        if scan_mode not in ('int8', 'exact'):
+        if scan_mode not in ('int8', 'int4', 'bf16', 'exact'):
             raise ValueError(f'unknown scan_mode: {scan_mode!r}')
+        if scan_mode == 'int4' and dim % 2:
+            raise ValueError('int4 scan_mode requires an even dim')
         self.scan_mode = scan_mode
         self.device = resolve_device(device)
         # growth policy flows from BaseIndex (reference base.py:29-57 knobs:
@@ -64,9 +64,15 @@ class FlatIndex(BaseIndex):
                     initial_capacity=self.initial_size)
         self._buf = DeviceBuffer((dim,), np.float32, **grow)
         self._norms = DeviceBuffer((), np.float32, **grow)
-        if scan_mode == 'int8':
-            self._scan_buf = DeviceBuffer((dim,), np.int8, **grow)
+        if scan_mode in ('int8', 'int4'):
+            store_dim = dim if scan_mode == 'int8' else dim // 2
+            self._scan_buf = DeviceBuffer((store_dim,), np.int8, **grow)
             self._scale = DeviceBuffer((), np.float32, **grow)
+        elif scan_mode == 'bf16':
+            # the host keeps float32 values rounded to bf16, the device bf16
+            self._scan_buf = DeviceBuffer((dim,), np.float32,
+                                          device_dtype=torch.bfloat16, **grow)
+            self._scale = None
         else:
             self._scan_buf = None
             self._scale = None
@@ -90,10 +96,17 @@ class FlatIndex(BaseIndex):
         ids = np.asarray(ids)
         self._buf.write(ids, x)
         self._norms.write(ids, np.sum(x * x, axis=1))
-        if self.scan_mode == 'int8':
-            codes, scale = quantize_rows_int8(x)
-            self._scan_buf.write(ids, codes)
-            self._scale.write(ids, scale)
+        self._write_scan(ids, x)
+
+    def _write_scan(self, rows: np.ndarray, x: np.ndarray):
+        """Write the scan copy of float32 rows ``x`` at ``rows``."""
+        if self.scan_mode in ('int8', 'int4'):
+            qz = quantize_rows_int8 if self.scan_mode == 'int8' else quantize_rows_int4
+            codes, scale = qz(x)
+            self._scan_buf.write(rows, codes)
+            self._scale.write(rows, scale)
+        elif self.scan_mode == 'bf16':
+            self._scan_buf.write(rows, x)
 
     def _device_mask(self, n_pad: int, mask: Optional[np.ndarray]) -> torch.Tensor:
         m = np.zeros(n_pad, dtype=np.int8)
@@ -120,18 +133,20 @@ class FlatIndex(BaseIndex):
         m = self._device_mask(x.shape[0], mask)
         k = min(limit, max(self.size, 1))
         metric = self.metric
-        if self.scan_mode == 'int8':
+        mode = self.scan_mode
+        if mode != 'exact':
             scan = self._scan_buf.device_view()
-            scale = self._scale.device_view()
+            scale = self._scale.device_view() if self._scale is not None else None
         device = self.device
 
         def run(query):
             q = torch.as_tensor(query, dtype=torch.float32, device=device)
             if metric == Metric.COSINE:
                 q = l2_normalize(q)
-            if self.scan_mode == 'exact':
+            if mode == 'exact':
                 return _flat_search(q, x, norms, m, k, int(metric))
-            return scan_topk(q, scan, scale, norms, m, k, metric, x_f32=x)
+            return scan_topk(q, scan, scale, norms, m, k, metric, x_f32=x,
+                             packed_int4=mode == 'int4')
 
         return run
 
@@ -140,6 +155,7 @@ class FlatIndex(BaseIndex):
         self._norms.reset()
         if self._scan_buf is not None:
             self._scan_buf.reset()
+        if self._scale is not None:
             self._scale.reset()
 
     # ----- snapshot state (see AnnLite.dump_index) -----
@@ -158,7 +174,4 @@ class FlatIndex(BaseIndex):
             rows = np.arange(v.shape[0])
             self._buf.write(rows, v)
             self._norms.write(rows, state['norms'])
-            if self.scan_mode == 'int8':
-                codes, scale = quantize_rows_int8(v)
-                self._scan_buf.write(rows, codes)
-                self._scale.write(rows, scale)
+            self._write_scan(rows, v)

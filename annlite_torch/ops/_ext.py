@@ -30,6 +30,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     'fused_scan': {
         'annlite_block_top2': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+        'annlite_block_top2_int4': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+        'annlite_block_top2_bf16': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
         'annlite_lane8_merge': [_P] * 4 + [_I] * 2 + [_P],
     },
     'gather': {

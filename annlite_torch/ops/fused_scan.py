@@ -1,7 +1,7 @@
 """Fused quantized scan + in-kernel candidate selection — the port of
 `annlite_tpu/ops/fused_scan.py`.
 
-The int8 first-pass scan (`ops/scan.py`) would materialize a ``[Q, N]``
+The unfused first-pass scan (`ops/scan.py`) would materialize a ``[Q, N]``
 float32 score matrix that the top-k reduction reads straight back.  The fused
 scan keeps only each block's *bucketed top-2*: for every (query, lane)
 bucket of the ``block_rows/128`` strided rows of a block of ``block_rows``
@@ -9,12 +9,17 @@ corpus rows, the best two scores and their global rows.  'lane8' selection
 then keeps a sorted top-8 per (query, lane class) over all blocks, which
 leaves 1024 candidates per query.
 
-Kernels (``csrc/fused_scan.cu``): ``block_top2`` (the block pass, K2 of the
-JAX package) and ``lane8_merge`` (the running top-8, the rest of K1).  Beside
-each sits its plain PyTorch version (``_fused_scan_ref``,
-``_fused_scan8_ref``), which holds the JAX references' contract
-(`annlite_tpu/ops/fused_scan.py:269-322`): the same scores bit for bit and
-the same rows.  The wrappers take the plain version for CPU tensors only;
+The corpus is int8 ``[N, D]`` with row scales, nibble-packed int4
+``[N, D/2]`` with row scales (``packed_int4=True``), or bfloat16 ``[N, D]``.
+
+Kernels (``csrc/fused_scan.cu``): the block pass (K2 of the JAX package, one
+variant per corpus type: ``block_top2``, ``block_top2_int4``,
+``block_top2_bf16``) and ``lane8_merge`` (the running top-8, the rest of
+K1).  Beside them sit their plain PyTorch versions (``_fused_scan_ref``,
+``_fused_scan8_ref``), which hold the JAX references' contract
+(`annlite_tpu/ops/fused_scan.py:269-322`): for int8 and int4 the same
+scores bit for bit and the same rows; for bf16 the same up to the order of
+the float32 sums.  The wrappers take the plain version for CPU tensors only;
 for CUDA tensors they launch the kernels or raise.
 """
 from typing import Optional, Tuple
@@ -25,7 +30,8 @@ from ..enums import Metric
 from ..math import dot_f32
 from . import _ext
 
-# the kernel stages a 16-query tile of int8 codes in 48 KB of shared memory
+# every block pass stages a 16-query tile in shared memory: int8 codes for
+# the int8 and int4 corpora (48 KB at D = 3072), float32 for bf16 (192 KB)
 MAX_FUSED_DIM = 3072
 
 
@@ -78,17 +84,36 @@ def _bucket_top2(sel, block_rows: int):
     return s, r
 
 
-def _fused_scan_ref(q8, qsc, x8, rs, bias, block_rows: int, coef: float):
+def scan_dots(q, x, packed_int4: bool = False):
+    """``q . x`` as float32 ``[Q, N]``: exact integer sums for int8 codes
+    ``q`` against an int8 or packed int4 ``x``; a float32 product without
+    TF32 for bf16 ``q`` and ``x`` (each bf16 product is exact in float32,
+    so only the order of the sums can differ from the kernel's)."""
+    if x.dtype == torch.bfloat16:
+        return dot_f32(q.float(), x.float())
+    if packed_int4:
+        from .scan import unpack_int4
+
+        d2 = x.shape[1]
+        lo, hi = unpack_int4(x)
+        return (int8_dot(q[:, :d2], lo) + int8_dot(q[:, d2:], hi)).float()
+    return int8_dot(q, x).float()
+
+
+def _fused_scan_ref(q, qsc, x, rs, bias, block_rows: int, coef: float,
+                    packed_int4: bool = False):
     """Block pass: ``(s, r)`` float32/int32 ``[Q, N/block_rows*256]``; per
     block ``[mn1 (128 lanes) | mn2 (128 lanes)]``."""
-    acc = int8_dot(q8, x8).float()
+    acc = scan_dots(q, x, packed_int4)
     sel = bias[None, :] + coef * ((acc * qsc[:, None]) * rs[None, :])
     return _bucket_top2(sel, block_rows)
 
 
-def _fused_scan8_ref(q8, qsc, x8, rs, bias, block_rows: int, coef: float):
+def _fused_scan8_ref(q, qsc, x, rs, bias, block_rows: int, coef: float,
+                     packed_int4: bool = False):
     """Deep select: the block pass, then :func:`_lane8_merge_ref`."""
-    return _lane8_merge_ref(*_fused_scan_ref(q8, qsc, x8, rs, bias, block_rows, coef))
+    return _lane8_merge_ref(
+        *_fused_scan_ref(q, qsc, x, rs, bias, block_rows, coef, packed_int4))
 
 
 def _lane8_merge_ref(s, r):
@@ -116,32 +141,74 @@ def _check_cuda(*ts):
             raise ValueError('expected contiguous tensors')
 
 
-def block_top2(q8, qsc, x8, rs, bias, block_rows: int, coef: float):
-    """Launch ``block_top2`` (K2 / K1's block pass) -> ``(s, r)`` as
-    :func:`_fused_scan_ref`."""
-    _check_cuda(q8, qsc, x8, rs, bias)
-    nq, d = q8.shape
-    n = x8.shape[0]
-    if (q8.dtype != torch.int8 or x8.dtype != torch.int8 or x8.shape[1] != d
-            or d % 16 or d > MAX_FUSED_DIM or n % block_rows or block_rows % 128
+def _launch_block_pass(entry: str, q, qsc, x, rs, bias, block_rows: int,
+                       coef: float, q_dtype, x_dtype, x_width: int):
+    _check_cuda(q, qsc, x, rs, bias)
+    nq, d = q.shape
+    n = x.shape[0]
+    # rows of q and x are read in 16-byte vectors
+    if (q.dtype != q_dtype or x.dtype != x_dtype or x.shape[1] != x_width
+            or (d * q.element_size()) % 16 or (x_width * x.element_size()) % 16
+            or x_width == 0 or d > MAX_FUSED_DIM or n % block_rows or block_rows % 128
             or n >= 2**31 or qsc.dtype != torch.float32
             or rs.dtype != torch.float32 or bias.dtype != torch.float32
-            or qsc.shape != (nq,) or rs.shape != (n,) or bias.shape != (n,)):
-        raise ValueError('block_top2: unsupported inputs')
+            or qsc.shape != (nq,) or rs.shape != (n,) or bias.shape != (n,)
+            or q.data_ptr() % 16 or x.data_ptr() % 16):
+        raise ValueError(f'{entry}: unsupported inputs')
     nb = n // block_rows
-    s = torch.empty((nq, nb * 256), dtype=torch.float32, device=x8.device)
-    r = torch.empty((nq, nb * 256), dtype=torch.int32, device=x8.device)
+    s = torch.empty((nq, nb * 256), dtype=torch.float32, device=x.device)
+    r = torch.empty((nq, nb * 256), dtype=torch.int32, device=x.device)
     lib = _ext.library('fused_scan')
-    with torch.cuda.device(x8.device):
-        _ext.check(lib.annlite_block_top2(
-            q8.data_ptr(), qsc.data_ptr(), x8.data_ptr(), rs.data_ptr(),
+    with torch.cuda.device(x.device):
+        _ext.check(getattr(lib, f'annlite_{entry}')(
+            q.data_ptr(), qsc.data_ptr(), x.data_ptr(), rs.data_ptr(),
             bias.data_ptr(), s.data_ptr(), r.data_ptr(), nq, n, d, block_rows,
-            coef, _ext.stream_ptr(x8)), 'block_top2')
-    block_top2.launches += 1
+            coef, _ext.stream_ptr(x)), entry)
     return s, r
 
 
+def block_top2(q, qsc, x, rs, bias, block_rows: int, coef: float,
+               packed_int4: bool = False):
+    """Launch the block pass (K2 / K1's block pass) that matches the corpus
+    -> ``(s, r)`` as :func:`_fused_scan_ref`: ``block_top2`` for int8 codes
+    ``x [N, D]``, :func:`block_top2_int4` for ``packed_int4``,
+    :func:`block_top2_bf16` for a bf16 ``x``.  Each counts its own
+    launches."""
+    if packed_int4:
+        return block_top2_int4(q, qsc, x, rs, bias, block_rows, coef)
+    if x.dtype == torch.bfloat16:
+        return block_top2_bf16(q, qsc, x, rs, bias, block_rows, coef)
+    out = _launch_block_pass('block_top2', q, qsc, x, rs, bias, block_rows, coef,
+                             torch.int8, torch.int8, q.shape[1])
+    block_top2.launches += 1
+    return out
+
+
 block_top2.launches = 0
+
+
+def block_top2_int4(q8, qsc, x4, rs, bias, block_rows: int, coef: float):
+    """The int4 block pass: int8 query codes ``q8 [Q, D]`` against the
+    nibble-packed corpus ``x4 [N, D/2]``."""
+    out = _launch_block_pass('block_top2_int4', q8, qsc, x4, rs, bias, block_rows,
+                             coef, torch.int8, torch.int8, q8.shape[1] // 2)
+    block_top2_int4.launches += 1
+    return out
+
+
+block_top2_int4.launches = 0
+
+
+def block_top2_bf16(qbf, qsc, xbf, rs, bias, block_rows: int, coef: float):
+    """The bf16 block pass: bf16 queries ``qbf [Q, D]`` against the bf16
+    corpus ``xbf [N, D]`` (``qsc`` and ``rs`` are ones on the scan path)."""
+    out = _launch_block_pass('block_top2_bf16', qbf, qsc, xbf, rs, bias, block_rows,
+                             coef, torch.bfloat16, torch.bfloat16, qbf.shape[1])
+    block_top2_bf16.launches += 1
+    return out
+
+
+block_top2_bf16.launches = 0
 
 
 def lane8_merge(s, r):
@@ -166,11 +233,11 @@ def lane8_merge(s, r):
 lane8_merge.launches = 0
 
 
-def _fused_scan(q8, qsc, x8, rs, bias, block_rows, coef, select):
-    if x8.device.type == 'cpu':
+def _fused_scan(q, qsc, x, rs, bias, block_rows, coef, select, packed_int4):
+    if x.device.type == 'cpu':
         ref = _fused_scan8_ref if select == 'lane8' else _fused_scan_ref
-        return ref(q8, qsc, x8, rs, bias, block_rows, coef)
-    s, r = block_top2(q8, qsc, x8, rs, bias, block_rows, coef)
+        return ref(q, qsc, x, rs, bias, block_rows, coef, packed_int4)
+    s, r = block_top2(q, qsc, x, rs, bias, block_rows, coef, packed_int4)
     if select == 'lane8':
         return lane8_merge(s, r)
     return s, r
@@ -181,13 +248,17 @@ def _fused_scan(q8, qsc, x8, rs, bias, block_rows, coef, select):
 # --------------------------------------------------------------------------
 
 
-def supports_fused_scan(n: int, d: int, q: int, block_rows: int = 8192) -> bool:
+def supports_fused_scan(n: int, d: int, q: int, block_rows: int = 8192,
+                        packed_int4: bool = False) -> bool:
     """The fused kernel requires lane-aligned geometry; callers use the
-    unfused scan otherwise.  The JAX rule, plus the kernel's dimension limit
-    (:data:`MAX_FUSED_DIM`)."""
+    unfused scan otherwise.  ``d`` is the LOGICAL dim (the packed int4 store
+    holds d/2 bytes per row, which must itself be lane-aligned).  The JAX
+    rule, plus the kernels' dimension limit (:data:`MAX_FUSED_DIM`)."""
+    d_store = d // 2 if packed_int4 else d
     return (
         n % block_rows == 0
         and d % 128 == 0
+        and d_store % 128 == 0
         and d <= MAX_FUSED_DIM
         and q <= 128
         and n // block_rows >= 1
@@ -202,9 +273,11 @@ def fused_scan_candidates(
     metric_val: int,
     *,
     block_rows: int = 8192,
+    packed_int4: bool = False,
     select: str = 'block2',
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan the int8 corpus ``x_scan [N, D]`` (with ``row_scale``) against
+    """Scan ``x_scan`` (int8 ``[N, D]`` with ``row_scale``, bf16, or
+    nibble-packed int4 ``[N, D/2]`` with ``packed_int4=True``) against
     float32 queries ``q [Q, D]``; returns ``(scores[Q, C], rows[Q, C])``,
     scores finalized to the values the unfused scan produces (BIG-or-more for
     masked rows).
@@ -216,13 +289,13 @@ def fused_scan_candidates(
     ``bias`` is float32 [N]: ``BIG*(1-mask)`` for IP/cosine, ``norms_sq +
     BIG*(1-mask)`` for L2.  The |q|^2 term of L2 is added here, outside the
     kernel.  The JAX function pads Q to a multiple of 8; the port does not
-    need to.  Its int4 and bf16 corpora are not ported yet (ROADMAP)."""
+    need to."""
     from .scan import quantize_rows_int8_device
 
-    if x_scan.dtype != torch.int8:
-        raise NotImplementedError(
-            f'fused scan of a {x_scan.dtype} corpus is not ported yet (ROADMAP '
-            'queue 1: the int4 and bf16 variants of the fused scan)')
+    if x_scan.dtype not in (torch.int8, torch.bfloat16) or (
+            packed_int4 and x_scan.dtype != torch.int8):
+        raise ValueError(f'unsupported scan corpus: {x_scan.dtype}'
+                         f'{" (packed int4)" if packed_int4 else ""}')
     n = x_scan.shape[0]
     if n % block_rows != 0:
         raise ValueError(
@@ -234,12 +307,18 @@ def fused_scan_candidates(
         raise ValueError(f'unknown select: {select!r}')
     if select == 'lane8' and n < 4 * block_rows:
         raise ValueError('lane8 selection requires N >= 4*block_rows')
-    q8, qsc = quantize_rows_int8_device(q)
-    rs = row_scale
+    if x_scan.dtype == torch.int8:
+        qs, qsc = quantize_rows_int8_device(q)
+        rs = row_scale
+    else:  # bf16: the queries rounded to bf16, no scales
+        qs = q.to(torch.bfloat16)
+        qsc = torch.ones((q.shape[0],), dtype=torch.float32, device=q.device)
+        rs = None
     if rs is None:
         rs = torch.ones((n,), dtype=torch.float32, device=x_scan.device)
     coef = -2.0 if metric_val == int(Metric.EUCLIDEAN) else -1.0
-    s, r = _fused_scan(q8, qsc, x_scan, rs, bias, block_rows, coef, select)
+    s, r = _fused_scan(qs, qsc, x_scan, rs, bias, block_rows, coef, select,
+                       packed_int4)
     if metric_val == int(Metric.EUCLIDEAN):
         s = s + torch.sum(q * q, dim=1)[:, None]
     else:

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``annlite_torch/csrc`` (``nvcc``, one process
-per source, all at once), then runs nine phases, each printing one JSON line:
+per source, all at once), then runs twelve phases, each printing one JSON
+line:
 
 1. ``build``: build time, the card's name and ``nvidia-smi``'s name and power
    limit;
@@ -18,35 +19,45 @@ per source, all at once), then runs nine phases, each printing one JSON line:
    32 cells padded with -1; ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
    and 1, C = 256 and 512, M = 64/K = 256 u8 and K = 1024 u16 at M = 16 and
    64 (m-tiled), with ids -1, N and NO_ID; ``adc_scores_i8`` (K9) at the ADC
-   shapes, also within 1% of K5, and once through its entry point.  Rows
-   equal and scores bit-equal for the scan, ADC and table kernels, the
-   stated tolerance for the rerank kernel;
+   shapes, also within 1% of K5, and once through its entry point; the
+   int4 and bf16 block passes (``block_top2_int4``, ``block_top2_bf16``) and
+   ``lane8_merge`` over their candidates at N = 2^20, D = 768, Q = 64, 1 and
+   5, cosine, L2 and a 5% mask, bf16 also on dyadic rows.  Rows equal and
+   scores bit-equal for the scan (bf16: on dyadic rows; within a stated
+   tolerance on unit rows, rows equal but for near-ties), ADC and table
+   kernels, the stated tolerance for the rerank kernel;
 3. ``flat``: ``scan_topk`` at N = 16384 (the block2 select), then a
    2^20 x 768 cosine ``FlatIndex``: recall@10 against a float32 brute force,
    batch 1 against row 0 of batch 64, batch-64 and batch-1 latency, masked
    search at 5% and 80% selectivity;
-4. ``facade``: ``AnnLite`` with 100,000 docs of 128 dimensions (euclidean,
+4. ``flat_int4`` and 5. ``flat_bf16``: the same rows and queries through
+   ``FlatIndex(scan_mode='int4'/'bf16')``: recall@10 >= 0.98 / 0.995, the
+   same checks and latencies, peak device memory;
+6. ``facade_scan_modes``: ``AnnLite(256, scan_mode='int4'/'bf16')`` over
+   65,536 docs: self-hits, ``serving_searcher`` against ``search_numpy``,
+   dump and reopen;
+7. ``facade``: ``AnnLite`` with 100,000 docs of 128 dimensions (euclidean,
    a ``price`` tag): self-hits, a filtered search, updates and deletes,
    ``serving_searcher`` against ``search_numpy``, dump and reopen;
-5. ``pq_scan``: the JAX package's ``bench.py`` PQ recipe, 2^20 x 128
+8. ``pq_scan``: the JAX package's ``bench.py`` PQ recipe, 2^20 x 128
    clustered rows, a PQ64 codec trained on the card, ``PQScanIndex`` at
    batch 64 with rerank 0 and 100 (recall@10 >= 0.99 against a float32 brute
    force), ``exact_topk``, a 5% mask, batch 1 against row 0 of batch 64;
-6. ``ivf_pq``: the same corpus in 1024 VQ cells fitted on the card,
+9. ``ivf_pq``: the same corpus in 1024 VQ cells fitted on the card,
    ``IVFPQIndex(rerank=100)`` at batch 8 / n_probe 8 (recall@10 >= 0.98)
    and batch 1 / n_probe 1;
-7. ``facade_pq``: ``AnnLite`` over phase 4's docs with ``n_subvectors=64``,
+10. ``facade_pq``: ``AnnLite`` over phase 7's docs with ``n_subvectors=64``,
    then with ``n_cells=64`` as well: train, index, self-hits, a filtered
    search, updates and deletes, encode/decode, dump and reopen;
-8. ``graph``: the JAX package's ``bench.py`` graph recipe, 131,072 x 128
+11. ``graph``: the JAX package's ``bench.py`` graph recipe, 131,072 x 128
    clustered rows, a host Vamana build (R 32, l_build 64) on every host
    thread, ef 128, beam width 8: recall@10 >= 0.95 with vector traversal,
    >= 0.90 with PQ64 table traversal (K8) and rerank 100 (rerank 0, int8
    and packed traversal printed), 50% and 5% masks (the 5% one equals the
    exact masked scan), soft deletes, ``device_searcher`` against
    ``search``, latency of each traversal and K8's share of a PQ search;
-9. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
-   of phase 4's docs, without a codec and with ``n_subvectors=64,
+12. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
+   of phase 7's docs, without a codec and with ``n_subvectors=64,
    rerank=0`` (K8 through the facade): self-hits, a filtered search,
    in-place updates, deletes, ``check_integrity``, ``serving_searcher``
    against ``search_numpy``, dump and reopen.
@@ -68,10 +79,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): memory rate, dense int8 tensor-core
-# rate, float32 rate outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): memory rate, dense int8 and bf16
+# tensor-core rates, float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 
 SEED = 0
@@ -127,9 +139,12 @@ def main() -> int:
     from annlite_torch.ops import fused_scan as fs
     from annlite_torch.ops import gather as ga
     from annlite_torch.ops import ivf as iv
-    from annlite_torch.ops.scan import quantize_rows_int8_device, scan_topk
+    from annlite_torch.ops.scan import (quantize_rows_int4_device,
+                                        quantize_rows_int8_device, scan_topk)
 
     kernels = {'block_top2': fs.block_top2, 'lane8_merge': fs.lane8_merge,
+               'block_top2_int4': fs.block_top2_int4,
+               'block_top2_bf16': fs.block_top2_bf16,
                'gather_rerank': ga.gather_rerank,
                'adc_scores': ad.adc_scores_kernel, 'adc_block_top2': ad.adc_block_top2,
                'ivf_scores': iv.ivf_scores, 'ivf_block_top2': iv.ivf_block_top2,
@@ -314,6 +329,137 @@ def main() -> int:
         """Largest |a - b| where they differ (0 when bit-equal; BIG and inf
         entries compare equal to themselves)."""
         return float(torch.where(a == b, torch.zeros_like(a), (a - b).abs()).max())
+
+    # The int4 and bf16 block passes at the flat path's shape (2^20 x 768,
+    # the unit rows above with their duplicated rows), Q = 64, 1 and 5, the
+    # cosine, L2 and 5%-mask biases; lane8_merge over each one's own
+    # candidates must equal its plain version, and the block pass and the
+    # merge must equal the plain block pass and plain merge: bit for bit for
+    # int4 (exact integer sums) and for bf16 on dyadic rows (k/8, |k| <= 16:
+    # every partial sum exact); within ``tol`` for bf16 on unit rows, where
+    # the kernel sums in ascending d and the plain product in another order.
+    def bf16_tol(coef, dim=d):
+        """Each order's float32 sum of D exact products lies within
+        D * 2^-24 * sum|q_d x_d| (<= 1.01 for unit rows rounded to bf16) of
+        the exact sum, times |coef|, plus half an ulp of 4 for the bias."""
+        return 2 * (abs(coef) * dim * 2.0**-24 * 1.01 + 2.0**-22)
+
+    def check_variant(tag, qs, qsc_, xv, rs, bias, coef, packed, tol=0.0):
+        """Scores within ``tol`` (0: bit-equal) and rows equal, but where
+        two rows tie within ``2 * tol``: their exact scores (float64, from
+        the same bf16 values) must then lie within ``2 * tol``."""
+        name = 'block_top2_int4' if packed else 'block_top2_bf16'
+        tag = f'{name} {tag} q={qs.shape[0]}'
+        s, r = fs.block_top2(qs, qsc_, xv, rs, bias, br, coef, packed_int4=packed)
+        s_ref, r_ref = fs._fused_scan_ref(qs, qsc_, xv, rs, bias, br, coef, packed)
+        s8, r8 = fs.lane8_merge(s, r)
+        if not all(map(torch.equal, (s8, r8), fs._lane8_merge_ref(s, r))):
+            fail(f'lane8_merge over {tag}: rows or scores differ from the plain version')
+        s8_ref, r8_ref = fs._lane8_merge_ref(s_ref, r_ref)
+        for sel, a, ra, b, rb in (('block2', s, r, s_ref, r_ref),
+                                  ('lane8', s8, r8, s8_ref, r8_ref)):
+            e = maxerr(a, b)
+            if tol == 0.0 and not (torch.equal(ra, rb) and e == 0.0):
+                fail(f'{tag} {sel}: rows or scores differ from the plain version')
+            if not e <= tol:
+                fail(f'{tag} {sel}: scores differ by {e} > {tol}')
+            differ = ra != rb
+            rows_differing[name] += int(differ.sum())
+            if bool(differ.any()):
+                qf = qs.double()[differ.nonzero()[:, 0]]
+
+                def exact(rows):
+                    rows = rows.long()
+                    return bias.double()[rows] + coef * (qf * xv[rows].double()).sum(-1)
+
+                gap = (exact(ra[differ]) - exact(rb[differ])).abs().max().item()
+                if not gap <= 2 * tol:
+                    fail(f'{tag} {sel}: rows differ where their scores are {gap} apart')
+            err[name] = max(err[name], e)
+        checks.append(f'{tag}: block pass and lane8_merge ' + (
+            'rows equal, scores bit-equal' if tol == 0.0
+            else f'scores within {tol:.3g}, rows equal but for ties within {2 * tol:.3g}'))
+
+    rows_differing = {'block_top2_int4': 0, 'block_top2_bf16': 0}
+    x4, xs4 = quantize_rows_int4_device(x)
+    xb = x.to(torch.bfloat16)
+    qb = q.to(torch.bfloat16)
+    ones_n = torch.ones(n, device=dev)
+    ones_q = torch.ones(nq, device=dev)
+    for tag, bias, coef in cases:
+        for nq_ in (64, 1, 5):
+            check_variant(f'n=2^20 d=768 {tag}', q8[:nq_], qsc[:nq_], x4, xs4, bias,
+                          coef, True)
+            check_variant(f'n=2^20 d=768 unit rows {tag}', qb[:nq_], ones_q[:nq_], xb,
+                          ones_n, bias, coef, False, bf16_tol(coef))
+    # dyadic rows and queries, with the same duplicated rows
+    xd = torch.randint(-16, 17, (n, d), device=dev, generator=g, dtype=torch.int8)
+    xd[128:256] = xd[0:128]
+    xd[br:br + 2048] = xd[0:2048]
+    xd = xd.to(torch.bfloat16) / 8
+    qd = (torch.randint(-16, 17, (nq, d), device=dev, generator=g,
+                        dtype=torch.int8).to(torch.bfloat16) / 8)
+    bias_d = torch.sum(xd.float() ** 2, dim=1) + torch.where(keep5, 0.0, 3.4e38).float()
+    for tag, bias, coef in (('ip', torch.zeros(n, device=dev), -1.0),
+                            ('l2 mask5%', bias_d, -2.0)):
+        for nq_ in (64, 1, 5):
+            check_variant(f'n=2^20 d=768 dyadic {tag}', qd[:nq_], ones_q[:nq_], xd,
+                          ones_n, bias, coef, False)
+    del xd, qd, bias_d
+    # the edges of the geometry on 65,536 rows, 17 queries (a partial tile)
+    # and a 50% mask: D = 256, the narrowest packed int4 row the fused path
+    # takes (the facade phase's width), and D = 3072, the widest, where the
+    # bf16 query tile needs 192 KB of shared memory (opted in above 48 KB)
+    ne = 1 << 16
+    keep_e = torch.where(torch.rand(ne, device=dev, generator=g) < 0.5, 0.0, 3.4e38).float()
+    for de in (256, 3072):
+        xe = torch.randn((ne, de), device=dev, generator=g)
+        xe[128:256] = xe[0:128]
+        xe = l2_normalize(xe)
+        qe = l2_normalize(torch.randn((17, de), device=dev, generator=g))
+        qe8, qesc = quantize_rows_int8_device(qe)
+        xe4, xes4 = quantize_rows_int4_device(xe)
+        ones_e, ones_qe = torch.ones(ne, device=dev), torch.ones(17, device=dev)
+        check_variant(f'n=65536 d={de} mask50%', qe8, qesc, xe4, xes4, keep_e, -1.0, True)
+        check_variant(f'n=65536 d={de} unit rows mask50%', qe.to(torch.bfloat16), ones_qe,
+                      xe.to(torch.bfloat16), ones_e, keep_e, -1.0, False,
+                      bf16_tol(-1.0, de))
+        xed = (torch.randint(-16, 17, (ne, de), device=dev, generator=g,
+                             dtype=torch.int8).to(torch.bfloat16) / 8)
+        qed = (torch.randint(-16, 17, (17, de), device=dev, generator=g,
+                             dtype=torch.int8).to(torch.bfloat16) / 8)
+        check_variant(f'n=65536 d={de} dyadic mask50%', qed, ones_qe, xed, ones_e, keep_e,
+                      -1.0, False)
+        xe8, xes8 = quantize_rows_int8_device(xe)
+        check_scan(f'n=65536 d={de} cosine mask50%', qe8, qesc, xe8, xes8, keep_e, -1.0, True)
+    del xe, qe, qe8, qesc, xe4, xes4, xed, qed, xe8, xes8, keep_e
+    # times at Q = 64 (cosine, unmasked) and Q = 1; the bounds count the
+    # corpus, row scales, biases and queries read once and the candidates
+    # written once; bf16 has a second bound, its FMAs on the CUDA cores
+    zeros_n = cases[0][1]
+    nb_v = n // br
+    variant_args = {
+        'block_top2_int4': (q8, qsc, x4, xs4, True),
+        'block_top2_bf16': (qb, ones_q, xb, ones_n, False),
+    }
+    variant_times, variant_q1_ms, variant_k1_ms = {}, {}, {}
+    for name, (qs, qsc_, xv, rs, packed) in variant_args.items():
+        variant_times[name] = (
+            cuda_ms(lambda: fs.block_top2(qs, qsc_, xv, rs, zeros_n, br, -1.0, packed_int4=packed)),
+            cuda_ms(lambda: fs._fused_scan_ref(qs, qsc_, xv, rs, zeros_n, br, -1.0, packed)))
+        variant_q1_ms[name] = cuda_ms(lambda: fs.block_top2(
+            qs[:1], qsc_[:1], xv, rs, zeros_n, br, -1.0, packed_int4=packed))
+        variant_k1_ms[name] = cuda_ms(lambda: fs.lane8_merge(*fs.block_top2(
+            qs, qsc_, xv, rs, zeros_n, br, -1.0, packed_int4=packed)))
+    cand_bytes = nq * nb_v * 256 * 8
+    variant_bounds = {
+        'block_top2_int4': bound(n * d // 2 + 8 * n + nq * d + 4 * nq + cand_bytes,
+                                 2.0 * nq * n * d, INT8_OPS_PER_S),
+        'block_top2_bf16': bound(n * d * 2 + 8 * n + nq * d * 2 + 4 * nq + cand_bytes,
+                                 2.0 * nq * n * d, BF16_OPS_PER_S),
+    }
+    bf16_cuda_core_bound_ms = 2.0 * nq * n * d / FP32_OPS_PER_S * 1e3
+    del x4, xs4, xb, qb, ones_n, ones_q, variant_args, qs, qsc_, xv, rs, bias
 
     # K4/K5 at the PQ path's shapes: M = 64, K = 256, u8 codes, N = 2^20.
     # Duplicated codes exercise the tie rules: rows 128..255 repeat rows
@@ -542,6 +688,8 @@ def main() -> int:
     }
     times.update(adc_times)
     bounds.update(adc_bounds)
+    times.update(variant_times)
+    bounds.update(variant_bounds)
     times['lut_pq_scores'], bounds['lut_pq_scores'] = lut_times, lut_bound
     times['adc_scores_i8'], bounds['adc_scores_i8'] = i8_times, i8_bound
     library_ms['lut_pq_scores'] = lut_library_ms
@@ -558,7 +706,11 @@ def main() -> int:
           'k4_lane8_merge_bound_ms': k4_merge_bound,
           'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel,
           'adc_scores_i8_entry_point_launches': i8_counts,
-          'shapes': 'Q=64 D=768; block_top2/lane8_merge N=2^20; gather R=40; '
+          'block_top2_variants_ms_q1': variant_q1_ms,
+          'block_top2_variants_rows_differing_from_plain': rows_differing,
+          'k1_variants_block_pass_plus_lane8_merge_ms': variant_k1_ms,
+          'block_top2_bf16_cuda_core_bound_ms': bf16_cuda_core_bound_ms,
+          'shapes': 'Q=64 D=768; block_top2(_int4, _bf16)/lane8_merge N=2^20; gather R=40; '
                     'adc_* Q=64 N=2^20 M=64 K=256 u8; lut_pq_scores Q=64 C=256 '
                     'N=131072 M=64 K=256 u8'})
     del x8, xs, norms, cases, cos_bias, s_blk, r_blk, cand, s, r
@@ -581,55 +733,114 @@ def main() -> int:
         i_s.tolist(), exact_s.indices[:, :10].tolist())]))
     del x_s, x8_s, xs_s, exact_s
 
+    # the flat phase's rows, queries and masks serve its int4 and bf16
+    # phases too; the float32 brute force is computed once
     rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
     xn = rng.standard_normal((n, d), dtype=np.float32)
-    index = FlatIndex(d, metric='cosine')
-    index.add_with_ids(xn, np.arange(n))
-    del xn
-    ingest_s = time.perf_counter() - t0
     queries = torch.from_numpy(rng.standard_normal((nq, d), dtype=np.float32)).to(dev)
     masks = {sel: rng.random(n) < sel for sel in (0.05, 0.80)}
+    exact_top10 = []
 
-    def flat_path():
-        run = index.device_searcher(limit=10)
-        out = {'b64': run(queries), 'b1': run(queries[:1])}
+    def flat_phase(mode, block_kernel, min_recall):
+        """A 2^20 x 768 cosine ``FlatIndex`` in ``mode`` over ``xn``: recall@10
+        against the float32 brute force, batch 1 against row 0 of batch 64,
+        masked rows inside their masks, latencies, peak device memory."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = FlatIndex(d, metric='cosine', scan_mode=mode)
+        index.add_with_ids(xn, np.arange(n))
+        ingest_s = time.perf_counter() - t0
+
+        def flat_path():
+            run = index.device_searcher(limit=10)
+            out = {'b64': run(queries), 'b1': run(queries[:1])}
+            for sel, m in masks.items():
+                out[sel] = index.device_searcher(limit=10, mask=m)(queries)
+            return run, out
+
+        (run, res), counts = drive(f'flat {mode} 2^20x768',
+                                   [block_kernel, 'lane8_merge', 'gather_rerank'], flat_path)
+        if not exact_top10:
+            xdev = index._buf.device_view()
+            exact = torch.sort(1.0 - l2_normalize(queries) @ xdev.T, dim=1, stable=True)
+            exact_top10.extend(exact.indices[:, :10].tolist())
+            del exact, xdev
+        recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(
+            res['b64'][1].tolist(), exact_top10)]))
+        if recall < min_recall:
+            fail(f'flat {mode} recall@10 {recall} < {min_recall}')
+        (d1, i1), (d64, i64) = res['b1'], res['b64']
+        if not (torch.equal(i1[0], i64[0])
+                and torch.allclose(d1[0], d64[0], rtol=1e-6, atol=0.0)):
+            fail(f'flat {mode} batch 1: result differs from row 0 of batch 64')
+        lat = {'batch64_ms': host_ms(lambda: run(queries)),
+               'batch1_ms': host_ms(lambda: run(queries[:1]))}
         for sel, m in masks.items():
-            out[sel] = index.device_searcher(limit=10, mask=m)(queries)
-        return run, out
+            rows = res[sel][1].cpu().numpy()
+            if not m[rows].all():
+                fail(f'flat {mode} mask {sel}: a returned row lies outside the mask')
+            mrun = index.device_searcher(limit=10, mask=m)
+            lat[f'mask{int(sel * 100)}pct_batch64_ms'] = host_ms(lambda: mrun(queries))
+        return {'phase': 'flat' if mode == 'int8' else f'flat_{mode}', 'n': n, 'dim': d,
+                'metric': 'cosine', 'scan_mode': mode, 'host_ingest_s': ingest_s,
+                'recall_at_10_vs_fp32': recall, 'qps_batch64': nq / lat['batch64_ms'] * 1e3,
+                'latency_ms': lat, 'masked_rows_in_mask': True,
+                'batch1_equals_batch64_row0': True, 'launches': counts,
+                'peak_device_bytes': torch.cuda.max_memory_allocated()}
 
-    (run, res), flat_counts = drive(
-        'flat 2^20x768', ['block_top2', 'lane8_merge', 'gather_rerank'], flat_path)
-    xdev = index._buf.device_view()
-    exact = torch.sort(1.0 - l2_normalize(queries) @ xdev.T, dim=1, stable=True)
-    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(
-        res['b64'][1].tolist(), exact.indices[:, :10].tolist())]))
-    del exact
-    if recall < 0.995:
-        fail(f'flat recall@10 {recall} < 0.995')
-    (d1, i1), (d64, i64) = res['b1'], res['b64']
-    if not (torch.equal(i1[0], i64[0])
-            and torch.allclose(d1[0], d64[0], rtol=1e-6, atol=0.0)):
-        fail('flat batch 1: result differs from row 0 of batch 64')
-    lat = {'batch64_ms': host_ms(lambda: run(queries)),
-           'batch1_ms': host_ms(lambda: run(queries[:1]))}
-    for sel, m in masks.items():
-        rows = res[sel][1].cpu().numpy()
-        if not m[rows].all():
-            fail(f'flat mask {sel}: a returned row lies outside the mask')
-        mrun = index.device_searcher(limit=10, mask=m)
-        lat[f'mask{int(sel * 100)}pct_batch64_ms'] = host_ms(lambda: mrun(queries))
-    emit({'phase': 'flat', 'scan_topk_n16384_recall_at_10': recall_s,
-          'scan_topk_n16384_launches': k2_counts,
-          'n': n, 'dim': d, 'metric': 'cosine', 'host_ingest_s': ingest_s,
-          'recall_at_10_vs_fp32': recall, 'qps_batch64': nq / lat['batch64_ms'] * 1e3,
-          'latency_ms': lat, 'masked_rows_in_mask': True,
-          'batch1_equals_batch64_row0': True, 'launches': flat_counts,
-          'peak_device_bytes': torch.cuda.max_memory_allocated()})
-    del index, run, res, xdev
+    emit({**flat_phase('int8', 'block_top2', 0.995),
+          'scan_topk_n16384_recall_at_10': recall_s,
+          'scan_topk_n16384_launches': k2_counts})
+    emit(flat_phase('int4', 'block_top2_int4', 0.98))
+    emit(flat_phase('bf16', 'block_top2_bf16', 0.995))
+    del xn
     torch.cuda.empty_cache()
 
-    # ---------------- 4. the facade ----------------
+    # ---------------- 6. the facade in the int4 and bf16 scan modes ----------------
+    # 65,536 random normal docs of 256 dimensions (int4 then stores 128
+    # bytes a row, which the fused kernel takes), cosine
+    nsm, dsm = 1 << 16, 256
+    xsm = np.random.default_rng(SEED).standard_normal((nsm, dsm), dtype=np.float32)
+
+    def facade_mode_path(mode, data_dir):
+        shutil.rmtree(data_dir, ignore_errors=True)
+        cfg = dict(n_dim=dsm, metric='cosine', scan_mode=mode, data_path=data_dir)
+        ann = AnnLite(**cfg)
+        t = time.perf_counter()
+        for lo in range(0, nsm, 16384):
+            ann.index([Doc(id=str(i), embedding=xsm[i]) for i in range(lo, lo + 16384)])
+        ingest = time.perf_counter() - t
+        d_np, ids_np = ann.search_numpy(xsm[:nq], limit=10)
+        if [row[0] for row in ids_np] != [str(i) for i in range(nq)]:
+            fail(f'facade_scan_modes {mode}: a doc does not find itself first')
+        serve = ann.serving_searcher(limit=10)
+        _, ids_sv = serve(xsm[:nq])
+        if ids_sv != ids_np:
+            fail(f'facade_scan_modes {mode}: serving_searcher ids differ from search_numpy')
+        serve_ms = host_ms(lambda: serve(xsm[:nq]), reps=10)
+        ann.dump()
+        ann.close()
+        ann = AnnLite(**cfg)
+        d_re, ids_re = ann.search_numpy(xsm[:nq], limit=10)
+        if ids_re != ids_np or not all(np.array_equal(a, b) for a, b in zip(d_re, d_np)):
+            fail(f'facade_scan_modes {mode}: results differ after dump and reopen')
+        ann.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+        return {'ingest_docs_per_s': nsm / ingest, 'serving_ms_batch64': serve_ms}
+
+    facade_modes = {}
+    for mode in ('int4', 'bf16'):
+        out, counts = drive(f'facade_scan_modes {mode}',
+                            [f'block_top2_{mode}', 'lane8_merge', 'gather_rerank'],
+                            lambda: facade_mode_path(mode, ROOT / 'build' / f'chip_smoke_{mode}'))
+        facade_modes[mode] = dict(out, launches=counts)
+    emit({'phase': 'facade_scan_modes', 'docs': nsm, 'dim': dsm, 'metric': 'cosine',
+          'self_hits_64': 64, 'serving_equals_search_numpy': True, 'reopen_equal': True,
+          **facade_modes})
+    del xsm
+
+    # ---------------- 7. the facade ----------------
     data_dir = ROOT / 'build' / 'chip_smoke_data'
     shutil.rmtree(data_dir, ignore_errors=True)
     nf, df = 100_000, 128
@@ -697,7 +908,7 @@ def main() -> int:
           'serving_ms_batch64': serve_ms, 'serving_qps': nq / serve_ms * 1e3,
           'launches': facade_counts})
 
-    # ---------------- 5. PQ scan (bench.py ph_pqivf) ----------------
+    # ---------------- 8. PQ scan (bench.py ph_pqivf) ----------------
     # 2^20 x 128 euclidean: 1024 centres x 2.0 plus unit normal noise, numpy
     # seed 0; PQ64 x 256 codewords trained on the card from 20,000 rows
     n2, d2 = 1 << 20, 128
@@ -769,7 +980,7 @@ def main() -> int:
           'launches': pq_counts})
     del pq_idx, idx100, res
 
-    # ---------------- 6. IVF-PQ (bench.py _ivf_substeps) ----------------
+    # ---------------- 9. IVF-PQ (bench.py _ivf_substeps) ----------------
     # cells from a VQ codec of 1024 centroids fitted on the card from 65,536
     # rows; IVFPQIndex(rerank=100); batch 8 at n_probe 8 (the deep select,
     # K6) and batch 1 at n_probe 1 (K7); queries from a fresh generator
@@ -844,7 +1055,7 @@ def main() -> int:
     del ivf, cb, mb, xs_dev, xs_sq, xs, codes
     torch.cuda.empty_cache()
 
-    # ---------------- 7. the facade with PQ codecs ----------------
+    # ---------------- 10. the facade with PQ codecs ----------------
     def facade_pq_path(kind, data_dir, kw):
         shutil.rmtree(data_dir, ignore_errors=True)
         cfg = dict(n_dim=df, metric='euclidean', columns=[('price', float)],
@@ -909,7 +1120,7 @@ def main() -> int:
           'self_hits_16': 16, 'filtered_ok': True, 'deleted_never_returned': True,
           'reopen_equal': True, **facade_pq})
 
-    # ---------------- 8. graph search (bench.py ph_graph) ----------------
+    # ---------------- 11. graph search (bench.py ph_graph) ----------------
     # bench.py's _graph_corpus: 131,072 x 128 euclidean rows, 1024 centres x
     # 2.0 plus unit noise (numpy seed 1234); a host Vamana build (R 32,
     # l_build 64) on every host thread; ph_graph's queries (seed 77: 64
@@ -1050,8 +1261,8 @@ def main() -> int:
     del gidx, gbase, gstate, gres, gxd, gsq, run
     torch.cuda.empty_cache()
 
-    # ---------------- 9. the facade with the graph index ----------------
-    # the first 20,000 of phase 4's docs, without a codec and with PQ64 at
+    # ---------------- 12. the facade with the graph index ----------------
+    # the first 20,000 of phase 7's docs, without a codec and with PQ64 at
     # rerank 0 (table traversal through the facade: K8)
     nfg = 20_000
 
@@ -1125,12 +1336,17 @@ def main() -> int:
 
     # ---------------- result ----------------
     src = {'block_top2': 'annlite_torch/csrc/fused_scan.cu',
+           'block_top2_int4': 'annlite_torch/csrc/fused_scan.cu',
+           'block_top2_bf16': 'annlite_torch/csrc/fused_scan.cu',
            'lane8_merge': 'annlite_torch/csrc/fused_scan.cu',
            'gather_rerank': 'annlite_torch/csrc/gather.cu',
            'lut_pq_scores': 'annlite_torch/csrc/lut_pq.cu',
            'adc_scores_i8': 'annlite_torch/csrc/adc_i8.cu'}
     replaces = {'block_top2': 'annlite_tpu/ops/fused_scan.py:99',
                 'lane8_merge': 'annlite_tpu/ops/fused_scan.py:121',
+                # the int4 and bf16 branches of K1/K2's block scoring
+                'block_top2_int4': 'annlite_tpu/ops/fused_scan.py:48',
+                'block_top2_bf16': 'annlite_tpu/ops/fused_scan.py:71',
                 'gather_rerank': 'annlite_tpu/ops/gather.py:31',
                 'adc_scores': 'annlite_tpu/ops/adc.py:67',
                 'adc_block_top2': 'annlite_tpu/ops/adc.py:169',

@@ -33,7 +33,7 @@ def _pair(metric, scan_mode, x):
 
 
 @pytest.mark.parametrize('masked', [False, True])
-@pytest.mark.parametrize('scan_mode', ['int8', 'exact'])
+@pytest.mark.parametrize('scan_mode', ['int8', 'int4', 'bf16', 'exact'])
 @pytest.mark.parametrize('metric', list(Metric))
 def test_flat_search_equal_jax(metric, scan_mode, masked):
     x, q = _data()
@@ -112,11 +112,14 @@ def test_state_round_trip():
 
 
 def test_unported_scan_modes_raise():
-    for mode in ('int4', 'bf16'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TFlat(D, scan_mode=mode, device='cpu')
-    with pytest.raises(ValueError):
+    """Every scan mode of the JAX package is ported: an unknown mode and an
+    odd dimension for int4 raise ValueError, as they do there."""
+    with pytest.raises(ValueError, match='unknown scan_mode'):
         TFlat(D, scan_mode='fp8', device='cpu')
+    with pytest.raises(ValueError, match='even dim'):
+        TFlat(D + 1, scan_mode='int4', device='cpu')
+    for mode in ('int4', 'bf16'):
+        assert TFlat(D, scan_mode=mode, device='cpu').scan_mode == mode
 
 
 def test_default_device_is_cuda():

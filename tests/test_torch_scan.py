@@ -170,12 +170,13 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 def test_unported_corpora_raise():
+    """Only int8, packed int4 (int8 storage) and bf16 corpora are scanned."""
     q = torch.zeros((2, D))
-    x = torch.zeros((8192, D), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    x = torch.zeros((8192, D), dtype=torch.uint8)
+    with pytest.raises(ValueError, match='unsupported scan corpus'):
         tfs.fused_scan_candidates(q, x, None, torch.zeros(8192), int(Metric.COSINE))
-    for corpus in (x, x.to(torch.uint8)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+    for corpus in (x, x.to(torch.float32)):
+        with pytest.raises(ValueError, match='unsupported scan corpus'):
             tsc.scan_topk(q, corpus, None, None, torch.ones(8192, dtype=torch.int8),
                           5, Metric.COSINE)
 
