@@ -1,0 +1,220 @@
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels: TMA
+// loads into shared memory, mbarriers, the wgmma shared-memory descriptor
+// for a 128-byte-swizzled K-major tile, and the wgmma instructions used, one
+// specialisation per accumulator width N (the wgmma's N: 8, 16 or 32).
+//
+// Fragment layouts (PTX ISA, "Register Fragments and Shared Memory Matrix
+// Layouts" of wgmma; CUTLASS's CLayout_64xN and ALayout_64x32): in a
+// warpgroup, thread t of warp w = t / 32 and lane l = t % 32 holds
+//   * accumulator d[4j + 2i + c] at row 16w + l/4 + 8i, column 8j + 2(l%4) + c;
+//   * for an 8-bit A operand from registers (k32), a[0] at row 16w + l/4,
+//     bytes 4(l%4) .. +3 of the k-step; a[1] the same 8 rows lower; a[2] and
+//     a[3] the same with bytes 16 + 4(l%4) .. +3.
+#pragma once
+#include <cstdint>
+#include <cuda.h>
+
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Make the initialised barriers visible to the async proxy (TMA) and the
+// other threads; a __syncthreads() must follow.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box of `map` at (c0 bytes, c1 rows) into shared memory at `dst`,
+// completing on `bar`.  Rows past the tensor's end arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The descriptor of a K-major operand tile of 128-byte rows as TMA writes it
+// with CU_TENSOR_MAP_SWIZZLE_128B: 8-row atoms of 1024 bytes (stride byte
+// offset 1024; the leading byte offset is unused), the tile 1024-byte
+// aligned.  Adding 2 moves the start 32 bytes along K (one k32 step of int8,
+// one k16 step of bf16).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers (accumulators,
+// A fragments) across a fence or a wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N) += A (64 x K) * B^T (N x K) for one K step; `acc` = 0 starts
+// the sum afresh.  s8_ss and bf16_ss read A and B through descriptors;
+// s8_rs takes A from registers.  int8 sums are exact int32.
+template <int N>
+struct Mma;
+
+template <>
+struct Mma<8> {
+  static __device__ __forceinline__ void s8_ss(int (&d)[4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3},"
+        " %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void s8_rs(int (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                               int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3},"
+        " {%4, %5, %6, %7}, %8, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16_ss(float (&d)[4], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3},"
+        " %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<16> {
+  static __device__ __forceinline__ void s8_ss(int (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void s8_rs(int (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                               int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16_ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void s8_ss(int (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+          "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void s8_rs(int (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                               int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+          "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void bf16_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+}  // namespace wg

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``annlite_torch/csrc/*.cu`` is compiled by ``nvcc`` into its own shared
-library with a plain C interface, loaded with ``ctypes``.  The libraries go
+library with a plain C interface, loaded with ``ctypes`` (``*.cuh`` are
+headers they include).  The libraries go
 into ``build/annlite_torch/<hash>/`` at the root of the checkout, keyed by a
 hash of the sources and flags, at the first CUDA launch (or by
 :func:`build`).  All sources compile at once, one ``nvcc`` each.  Nothing is
@@ -29,10 +30,11 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are void*, every size an int
 SIGNATURES = {
     'fused_scan': {
-        'annlite_block_top2': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
-        'annlite_block_top2_int4': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
-        'annlite_block_top2_bf16': [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+        'annlite_block_top2': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+        'annlite_block_top2_int4': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+        'annlite_block_top2_bf16': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
         'annlite_lane8_merge': [_P] * 4 + [_I] * 2 + [_P],
+        'annlite_block_pass_info': [_I] * 4 + [_P],
     },
     'gather': {
         'annlite_gather_rerank': [_P] * 4 + [_I] * 6 + [_P],

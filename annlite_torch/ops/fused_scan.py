@@ -14,15 +14,19 @@ The corpus is int8 ``[N, D]`` with row scales, nibble-packed int4
 
 Kernels (``csrc/fused_scan.cu``): the block pass (K2 of the JAX package, one
 variant per corpus type: ``block_top2``, ``block_top2_int4``,
-``block_top2_bf16``) and ``lane8_merge`` (the running top-8, the rest of
-K1).  Beside them sit their plain PyTorch versions (``_fused_scan_ref``,
-``_fused_scan8_ref``), which hold the JAX references' contract
-(`annlite_tpu/ops/fused_scan.py:269-322`): for int8 and int4 the same
-scores bit for bit and the same rows; for bf16 the same up to the order of
-the float32 sums.  The wrappers take the plain version for CPU tensors only;
-for CUDA tensors they launch the kernels or raise.
+``block_top2_bf16``; wgmma products fed by TMA, the bucketed top-2 kept in
+registers) and ``lane8_merge`` (the running top-8, the rest of K1).  The
+block pass's launch geometry (query tiles, lane halves, group splits) is
+chosen here, :func:`block_pass_plan`.  Beside the kernels sit their plain
+PyTorch versions (``_fused_scan_ref``, ``_fused_scan8_ref``), which hold
+the JAX references' contract (`annlite_tpu/ops/fused_scan.py:269-322`):
+for int8 and int4 the same scores bit for bit and the same rows; for bf16
+the same up to the order of the float32 sums.  The wrappers take the plain
+version for CPU tensors only; for CUDA tensors they launch the kernels or
+raise.
 """
-from typing import Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,9 +34,18 @@ from ..enums import Metric
 from ..math import dot_f32
 from . import _ext
 
-# every block pass stages a 16-query tile in shared memory: int8 codes for
-# the int8 and int4 corpora (48 KB at D = 3072), float32 for bf16 (192 KB)
+# the widest row the block passes take (their query tile then streams
+# through shared memory beside the corpus instead of staying resident)
 MAX_FUSED_DIM = 3072
+# queries of a tile, by variant; more queries take several tiles.  The
+# shapes measured fastest on an H100 at 2^20 x 768 (PERF.md, PR 5): int8
+# takes tiles of 64 as two warpgroups of 32 on the same corpus stages (one
+# warpgroup at N = 64 spills); int4, whose unpacked A fragments then spill
+# too, and bf16, whose 64-query tile leaves one CTA per SM, take tiles of 32
+QUERY_TILE = {'int8': 64, 'int4': 32, 'bf16': 32}
+TILE_WIDTHS = (8, 16, 32)       # wgmma N of a warpgroup's share of a tile
+HALVES = 2                      # lane halves: 64 rows, one warpgroup's M tile
+TARGET_CTAS = 264               # two per SM of an H100 (132 SMs)
 
 
 def int8_dot(q8: torch.Tensor, x8: torch.Tensor) -> torch.Tensor:
@@ -133,6 +146,50 @@ def _lane8_merge_ref(s, r):
 # --------------------------------------------------------------------------
 
 
+class BlockPassPlan(NamedTuple):
+    """Launch geometry of a block pass: ``tiles`` query tiles of ``qt``
+    queries (the last may hold fewer), each held by ``nwg`` warpgroups of
+    ``nt`` queries (the wgmma N) that share the corpus stages; ``splits``
+    CTAs share the groups of one block's lane half."""
+    tiles: int
+    qt: int
+    nt: int
+    nwg: int
+    splits: int
+
+
+def block_pass_plan(nq: int, n: int, block_rows: int, variant: str = 'int8') -> BlockPassPlan:
+    """Query tiles of at most ``QUERY_TILE[variant]`` queries, balanced (65
+    int8 queries take two tiles of 33), each reading the corpus, through L2
+    where they run side by side, rather than one tile of N = 128, whose
+    state would not fit in registers.  A tile of up to 32 queries is one
+    warpgroup padded to the wgmma N of 8, 16 or 32; an int8 tile of 33 to
+    64, two warpgroups of 32.  Where the blocks give fewer than half of
+    :data:`TARGET_CTAS` CTAs, each block's groups are split over CTAs (at
+    least two groups each), and the kernel merges the splits' partial
+    top-2s in order."""
+    tiles = -(-nq // QUERY_TILE[variant])
+    qt = -(-nq // tiles)
+    nwg = 1 if qt <= TILE_WIDTHS[-1] else 2
+    nt = next(w for w in TILE_WIDTHS if w * nwg >= qt)
+    groups = block_rows // 128
+    want = TARGET_CTAS // (n // block_rows * HALVES * tiles)
+    splits = max(s for s in range(1, max(1, min(want, groups // 2)) + 1) if groups % s == 0)
+    return BlockPassPlan(tiles, qt, nt, nwg, splits)
+
+
+def block_pass_ctas(plan: BlockPassPlan, nq: int, n: int,
+                    block_rows: int) -> List[Tuple[int, range, range, range]]:
+    """The kernel's CTAs in ``blockIdx`` order (query tile fastest, then
+    group split, lane half, row block), each as ``(block, lanes, groups,
+    queries)``: the cells of the block pass it computes."""
+    gps = block_rows // 128 // plan.splits
+    return [(blk, range(h * 64, h * 64 + 64), range(s * gps, s * gps + gps),
+             range(t * plan.qt, min(nq, t * plan.qt + plan.qt)))
+            for blk in range(n // block_rows) for h in range(HALVES)
+            for s in range(plan.splits) for t in range(plan.tiles)]
+
+
 def _check_cuda(*ts):
     for t in ts:
         if not t.is_cuda:
@@ -141,30 +198,69 @@ def _check_cuda(*ts):
             raise ValueError('expected contiguous tensors')
 
 
-def _launch_block_pass(entry: str, q, qsc, x, rs, bias, block_rows: int,
-                       coef: float, q_dtype, x_dtype, x_width: int):
-    _check_cuda(q, qsc, x, rs, bias)
+def _unsupported(q, qsc, x, rs, bias, block_rows, q_dtype, x_dtype, x_width):
+    """Why the block pass cannot take these inputs, or None."""
     nq, d = q.shape
     n = x.shape[0]
-    # rows of q and x are read in 16-byte vectors
-    if (q.dtype != q_dtype or x.dtype != x_dtype or x.shape[1] != x_width
-            or (d * q.element_size()) % 16 or (x_width * x.element_size()) % 16
-            or x_width == 0 or d > MAX_FUSED_DIM or n % block_rows or block_rows % 128
-            or n >= 2**31 or qsc.dtype != torch.float32
-            or rs.dtype != torch.float32 or bias.dtype != torch.float32
-            or qsc.shape != (nq,) or rs.shape != (n,) or bias.shape != (n,)
-            or q.data_ptr() % 16 or x.data_ptr() % 16):
-        raise ValueError(f'{entry}: unsupported inputs')
+    if q.dtype != q_dtype or x.dtype != x_dtype:
+        return f'expected {q_dtype} queries and a {x_dtype} corpus'
+    if x.shape[1] != x_width or nq == 0:
+        return f'a corpus row of {x_width} values and at least one query expected'
+    if (d * q.element_size()) % 128 or (x_width * x.element_size()) % 128:
+        return 'query and corpus rows must be whole 128-byte TMA boxes'
+    if d > MAX_FUSED_DIM:
+        return f'D = {d} > {MAX_FUSED_DIM}'
+    if block_rows % 128 or n == 0 or n % block_rows or block_rows // 128 > 0xFFFF:
+        return (f'N = {n} must be a multiple of block_rows = {block_rows}, itself '
+                'a multiple of 128 of at most 65535 groups')
+    if n >= 2**31:
+        return 'N must be below 2^31'
+    if (qsc.dtype, rs.dtype, bias.dtype) != (torch.float32,) * 3 or (
+            qsc.shape != (nq,) or rs.shape != (n,) or bias.shape != (n,)):
+        return 'qsc [Q], rs [N] and bias [N] must be float32'
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        return 'queries and corpus must be 16-byte aligned'
+    return None
+
+
+def _launch_block_pass(entry: str, variant: str, q, qsc, x, rs, bias, block_rows: int,
+                       coef: float, q_dtype, x_dtype, x_width: int):
+    _check_cuda(q, qsc, x, rs, bias)
+    reason = _unsupported(q, qsc, x, rs, bias, block_rows, q_dtype, x_dtype, x_width)
+    if reason:
+        raise ValueError(f'{entry}: unsupported inputs: {reason}')
+    nq, d = q.shape
+    n = x.shape[0]
     nb = n // block_rows
+    plan = block_pass_plan(nq, n, block_rows, variant)
     s = torch.empty((nq, nb * 256), dtype=torch.float32, device=x.device)
     r = torch.empty((nq, nb * 256), dtype=torch.int32, device=x.device)
+    parts = (None, None)
+    if plan.splits > 1:  # the splits' partial top-2s and their groups
+        ps = torch.empty((plan.splits, nq, nb * 256), dtype=torch.float32, device=x.device)
+        pg = torch.empty((plan.splits, nq, nb * 256), dtype=torch.int32, device=x.device)
+        parts = (ps.data_ptr(), pg.data_ptr())
     lib = _ext.library('fused_scan')
     with torch.cuda.device(x.device):
         _ext.check(getattr(lib, f'annlite_{entry}')(
             q.data_ptr(), qsc.data_ptr(), x.data_ptr(), rs.data_ptr(),
-            bias.data_ptr(), s.data_ptr(), r.data_ptr(), nq, n, d, block_rows,
-            coef, _ext.stream_ptr(x)), entry)
+            bias.data_ptr(), s.data_ptr(), r.data_ptr(), *parts, nq, n, d, block_rows,
+            plan.qt, plan.nt, plan.nwg, plan.splits, coef, _ext.stream_ptr(x)), entry)
     return s, r
+
+
+def block_pass_info(variant: str, nq: int, n: int, d: int, block_rows: int = 8192) -> dict:
+    """How the block pass of ``variant`` ('int8', 'int4', 'bf16') runs at
+    these shapes on the card: its plan, grid, registers and spilled bytes
+    per thread, shared memory per CTA, ring stages and whether the query
+    tile stays resident.  Builds the kernels; needs a card."""
+    plan = block_pass_plan(nq, n, block_rows, variant)
+    out = (ctypes.c_int * 5)()
+    _ext.check(_ext.library('fused_scan').annlite_block_pass_info(
+        ('int8', 'int4', 'bf16').index(variant), plan.nt, plan.nwg, d, out), 'block_pass_info')
+    return {**plan._asdict(), 'grid': len(block_pass_ctas(plan, nq, n, block_rows)),
+            'registers': out[0], 'spill_bytes': out[1], 'smem_bytes': out[2],
+            'stages': out[3], 'query_tile_resident': bool(out[4])}
 
 
 def block_top2(q, qsc, x, rs, bias, block_rows: int, coef: float,
@@ -178,7 +274,7 @@ def block_top2(q, qsc, x, rs, bias, block_rows: int, coef: float,
         return block_top2_int4(q, qsc, x, rs, bias, block_rows, coef)
     if x.dtype == torch.bfloat16:
         return block_top2_bf16(q, qsc, x, rs, bias, block_rows, coef)
-    out = _launch_block_pass('block_top2', q, qsc, x, rs, bias, block_rows, coef,
+    out = _launch_block_pass('block_top2', 'int8', q, qsc, x, rs, bias, block_rows, coef,
                              torch.int8, torch.int8, q.shape[1])
     block_top2.launches += 1
     return out
@@ -190,7 +286,7 @@ block_top2.launches = 0
 def block_top2_int4(q8, qsc, x4, rs, bias, block_rows: int, coef: float):
     """The int4 block pass: int8 query codes ``q8 [Q, D]`` against the
     nibble-packed corpus ``x4 [N, D/2]``."""
-    out = _launch_block_pass('block_top2_int4', q8, qsc, x4, rs, bias, block_rows,
+    out = _launch_block_pass('block_top2_int4', 'int4', q8, qsc, x4, rs, bias, block_rows,
                              coef, torch.int8, torch.int8, q8.shape[1] // 2)
     block_top2_int4.launches += 1
     return out
@@ -202,7 +298,7 @@ block_top2_int4.launches = 0
 def block_top2_bf16(qbf, qsc, xbf, rs, bias, block_rows: int, coef: float):
     """The bf16 block pass: bf16 queries ``qbf [Q, D]`` against the bf16
     corpus ``xbf [N, D]`` (``qsc`` and ``rs`` are ones on the scan path)."""
-    out = _launch_block_pass('block_top2_bf16', qbf, qsc, xbf, rs, bias, block_rows,
+    out = _launch_block_pass('block_top2_bf16', 'bf16', qbf, qsc, xbf, rs, bias, block_rows,
                              coef, torch.bfloat16, torch.bfloat16, qbf.shape[1])
     block_top2_bf16.launches += 1
     return out

@@ -11,8 +11,9 @@ line:
    limit;
 2. ``kernels_vs_plain``: every kernel against its plain PyTorch version on the
    card at the main paths' shapes, and CUDA-event times.  The scan kernels
-   at D = 768 (N = 16384 and 2^20, 1, 64 and 100 queries) and at the
-   facade's D = 128 (N = 131072, 8 and 100 queries); the ADC kernels at
+   at D = 768 (N = 16384 and 2^20, 1, 64 and 100 queries; at 2^20 also 65
+   and 128, the query tiles' edges) and at the facade's D = 128 (N = 131072,
+   8 and 100 queries); the ADC kernels at
    M = 64, K = 256, u8 codes, N = 2^20 with 1, 64 and 100 queries, masked
    and unmasked, once at K = 1024 with u16 codes (the m-tiled table), and
    the IVF kernels on 1024 blocks of 1024 slots with probe sets of 1, 8 and
@@ -21,11 +22,15 @@ line:
    64 (m-tiled), with ids -1, N and NO_ID; ``adc_scores_i8`` (K9) at the ADC
    shapes, also within 1% of K5, and once through its entry point; the
    int4 and bf16 block passes (``block_top2_int4``, ``block_top2_bf16``) and
-   ``lane8_merge`` over their candidates at N = 2^20, D = 768, Q = 64, 1 and
-   5, cosine, L2 and a 5% mask, bf16 also on dyadic rows.  Rows equal and
-   scores bit-equal for the scan (bf16: on dyadic rows; within a stated
-   tolerance on unit rows, rows equal but for near-ties), ADC and table
-   kernels, the stated tolerance for the rerank kernel;
+   ``lane8_merge`` over their candidates at N = 2^20, D = 768, Q = 64, 1, 5,
+   65 and 128, cosine, L2 and a 5% mask, bf16 also on dyadic rows, and at
+   65,536 x 256 and x 3072, Q = 17.  Rows equal and scores bit-equal for the
+   scan (bf16: on dyadic rows; within a stated tolerance on unit rows, rows
+   equal but for near-ties), ADC and table kernels, the stated tolerance for
+   the rerank kernel.  Each block pass's time at Q = 64, 32 and 1, its geometry
+   (query tiles, group splits, grid, shared memory per CTA, registers per
+   thread), and as a ceiling for the product alone ``torch._int_mm`` and a
+   bf16 ``torch.matmul`` over the same [64, 768] x [768, 2^20];
 3. ``flat``: ``scan_topk`` at N = 16384 (the block2 select), then a
    2^20 x 768 cosine ``FlatIndex``: recall@10 against a float32 brute force,
    batch 1 against row 0 of batch 64, batch-64 and batch-1 latency, masked
@@ -231,11 +236,14 @@ def main() -> int:
 
     q = torch.randn((nq, d), device=dev, generator=g)
     q8, qsc = quantize_rows_int8_device(q)
-    # the main path's batch sizes: 64, 1 and 100 (the last two leave a
-    # partial 16-query tile in block_top2)
+    # the main path's batch sizes 64, 1 and 100, and the edges of the query
+    # tiles: 65 (one past a 64-query tile) and 128 (the geometry's limit)
     q100 = torch.randn((100, d), device=dev, generator=g)
+    q128 = torch.randn((128, d), device=dev, generator=g)
+    q8e, qsce = quantize_rows_int8_device(q128)
     qsets = {64: (q8, qsc), 1: (q8[:1], qsc[:1]),
-             100: quantize_rows_int8_device(q100)}
+             100: quantize_rows_int8_device(q100),
+             65: (q8e[:65], qsce[:65]), 128: (q8e, qsce)}
     err = {k: 0.0 for k in kernels}
     checks = []
 
@@ -337,11 +345,14 @@ def main() -> int:
     # merge must equal the plain block pass and plain merge: bit for bit for
     # int4 (exact integer sums) and for bf16 on dyadic rows (k/8, |k| <= 16:
     # every partial sum exact); within ``tol`` for bf16 on unit rows, where
-    # the kernel sums in ascending d and the plain product in another order.
+    # the tensor cores sum in their own order and the plain product in another.
     def bf16_tol(coef, dim=d):
         """Each order's float32 sum of D exact products lies within
         D * 2^-24 * sum|q_d x_d| (<= 1.01 for unit rows rounded to bf16) of
-        the exact sum, times |coef|, plus half an ulp of 4 for the bias."""
+        the exact sum, times |coef|, plus half an ulp of 4 for the bias.  The
+        tensor cores' float32 accumulation need not round to nearest: the
+        largest error met, as a share of this bound, is printed
+        (``block_top2_bf16_unit_rows_err_over_tol``)."""
         return 2 * (abs(coef) * dim * 2.0**-24 * 1.01 + 2.0**-22)
 
     def check_variant(tag, qs, qsc_, xv, rs, bias, coef, packed, tol=0.0):
@@ -376,33 +387,39 @@ def main() -> int:
                 if not gap <= 2 * tol:
                     fail(f'{tag} {sel}: rows differ where their scores are {gap} apart')
             err[name] = max(err[name], e)
+            if tol:
+                bf16_err_share[0] = max(bf16_err_share[0], e / tol)
         checks.append(f'{tag}: block pass and lane8_merge ' + (
             'rows equal, scores bit-equal' if tol == 0.0
             else f'scores within {tol:.3g}, rows equal but for ties within {2 * tol:.3g}'))
 
     rows_differing = {'block_top2_int4': 0, 'block_top2_bf16': 0}
+    bf16_err_share = [0.0]  # the largest unit-row error as a share of its tolerance
     x4, xs4 = quantize_rows_int4_device(x)
     xb = x.to(torch.bfloat16)
-    qb = q.to(torch.bfloat16)
+    # unit queries, as the cosine flat path gives them: bf16_tol's bound holds
+    qb = l2_normalize(q).to(torch.bfloat16)
+    qbe = l2_normalize(q128).to(torch.bfloat16)
     ones_n = torch.ones(n, device=dev)
-    ones_q = torch.ones(nq, device=dev)
+    ones_q = torch.ones(128, device=dev)
     for tag, bias, coef in cases:
-        for nq_ in (64, 1, 5):
-            check_variant(f'n=2^20 d=768 {tag}', q8[:nq_], qsc[:nq_], x4, xs4, bias,
-                          coef, True)
-            check_variant(f'n=2^20 d=768 unit rows {tag}', qb[:nq_], ones_q[:nq_], xb,
-                          ones_n, bias, coef, False, bf16_tol(coef))
+        for qs8, qsc8, qsb in ((q8, qsc, qb), (q8e, qsce, qbe)):
+            for nq_ in ((64, 1, 5) if qs8 is q8 else (65, 128)):
+                check_variant(f'n=2^20 d=768 {tag}', qs8[:nq_], qsc8[:nq_], x4, xs4, bias,
+                              coef, True)
+                check_variant(f'n=2^20 d=768 unit rows {tag}', qsb[:nq_], ones_q[:nq_], xb,
+                              ones_n, bias, coef, False, bf16_tol(coef))
     # dyadic rows and queries, with the same duplicated rows
     xd = torch.randint(-16, 17, (n, d), device=dev, generator=g, dtype=torch.int8)
     xd[128:256] = xd[0:128]
     xd[br:br + 2048] = xd[0:2048]
     xd = xd.to(torch.bfloat16) / 8
-    qd = (torch.randint(-16, 17, (nq, d), device=dev, generator=g,
+    qd = (torch.randint(-16, 17, (128, d), device=dev, generator=g,
                         dtype=torch.int8).to(torch.bfloat16) / 8)
     bias_d = torch.sum(xd.float() ** 2, dim=1) + torch.where(keep5, 0.0, 3.4e38).float()
     for tag, bias, coef in (('ip', torch.zeros(n, device=dev), -1.0),
                             ('l2 mask5%', bias_d, -2.0)):
-        for nq_ in (64, 1, 5):
+        for nq_ in (64, 1, 5, 65, 128):
             check_variant(f'n=2^20 d=768 dyadic {tag}', qd[:nq_], ones_q[:nq_], xd,
                           ones_n, bias, coef, False)
     del xd, qd, bias_d
@@ -433,24 +450,46 @@ def main() -> int:
         xe8, xes8 = quantize_rows_int8_device(xe)
         check_scan(f'n=65536 d={de} cosine mask50%', qe8, qesc, xe8, xes8, keep_e, -1.0, True)
     del xe, qe, qe8, qesc, xe4, xes4, xed, qed, xe8, xes8, keep_e
-    # times at Q = 64 (cosine, unmasked) and Q = 1; the bounds count the
+    # times at Q = 64 (cosine, unmasked), 32 and 1; the bounds count the
     # corpus, row scales, biases and queries read once and the candidates
-    # written once; bf16 has a second bound, its FMAs on the CUDA cores
+    # written once.  Each block pass's geometry (query tiles, splits, grid,
+    # shared memory per CTA, registers per thread) at Q = 64, 32 and 1.
     zeros_n = cases[0][1]
     nb_v = n // br
     variant_args = {
-        'block_top2_int4': (q8, qsc, x4, xs4, True),
-        'block_top2_bf16': (qb, ones_q, xb, ones_n, False),
+        'block_top2': (q8, qsc, x8, xs, False, 'int8'),
+        'block_top2_int4': (q8, qsc, x4, xs4, True, 'int4'),
+        'block_top2_bf16': (qb, ones_q[:nq], xb, ones_n, False, 'bf16'),
     }
-    variant_times, variant_q1_ms, variant_k1_ms = {}, {}, {}
-    for name, (qs, qsc_, xv, rs, packed) in variant_args.items():
-        variant_times[name] = (
-            cuda_ms(lambda: fs.block_top2(qs, qsc_, xv, rs, zeros_n, br, -1.0, packed_int4=packed)),
-            cuda_ms(lambda: fs._fused_scan_ref(qs, qsc_, xv, rs, zeros_n, br, -1.0, packed)))
+    variant_times, variant_q1_ms, variant_q32_ms, variant_k1_ms = {}, {}, {}, {}
+    block_pass_geometry = {}
+    for name, (qs, qsc_, xv, rs, packed, variant) in variant_args.items():
+        if name != 'block_top2':  # int8's Q = 64 times are taken with K3's below
+            variant_times[name] = (
+                cuda_ms(lambda: fs.block_top2(qs, qsc_, xv, rs, zeros_n, br, -1.0,
+                                              packed_int4=packed)),
+                cuda_ms(lambda: fs._fused_scan_ref(qs, qsc_, xv, rs, zeros_n, br, -1.0, packed)))
+            variant_k1_ms[name] = cuda_ms(lambda: fs.lane8_merge(*fs.block_top2(
+                qs, qsc_, xv, rs, zeros_n, br, -1.0, packed_int4=packed)))
         variant_q1_ms[name] = cuda_ms(lambda: fs.block_top2(
             qs[:1], qsc_[:1], xv, rs, zeros_n, br, -1.0, packed_int4=packed))
-        variant_k1_ms[name] = cuda_ms(lambda: fs.lane8_merge(*fs.block_top2(
-            qs, qsc_, xv, rs, zeros_n, br, -1.0, packed_int4=packed)))
+        # one query tile of 32 (int4 and bf16 take two at Q = 64)
+        variant_q32_ms[name] = cuda_ms(lambda: fs.block_top2(
+            qs[:32], qsc_[:32], xv, rs, zeros_n, br, -1.0, packed_int4=packed))
+        block_pass_geometry[name] = {f'q{k}': fs.block_pass_info(variant, k, n, d)
+                                     for k in (64, 32, 1)}
+    # a ceiling for the product alone over the same [64, 768] x [768, 2^20]
+    # (no PyTorch call computes the bucketed top-2; the port calls neither):
+    # torch._int_mm (int8, exact int32: checked against int8_dot on a slice)
+    # and torch.matmul in bf16
+    product_only_ms = {}
+    try:
+        if not torch.equal(torch._int_mm(q8, x8[:8192].t()), fs.int8_dot(q8, x8[:8192])):
+            fail('torch._int_mm does not compute the int8 products')
+        product_only_ms['int8_torch_int_mm'] = cuda_ms(lambda: torch._int_mm(q8, x8.t()))
+    except RuntimeError as e:  # a yardstick the installed PyTorch may not offer
+        product_only_ms['int8_torch_int_mm'] = f'not measured: {e}'[:200]
+    product_only_ms['bf16_torch_matmul'] = cuda_ms(lambda: torch.matmul(qb, xb.t()))
     cand_bytes = nq * nb_v * 256 * 8
     variant_bounds = {
         'block_top2_int4': bound(n * d // 2 + 8 * n + nq * d + 4 * nq + cand_bytes,
@@ -458,8 +497,8 @@ def main() -> int:
         'block_top2_bf16': bound(n * d * 2 + 8 * n + nq * d * 2 + 4 * nq + cand_bytes,
                                  2.0 * nq * n * d, BF16_OPS_PER_S),
     }
-    bf16_cuda_core_bound_ms = 2.0 * nq * n * d / FP32_OPS_PER_S * 1e3
-    del x4, xs4, xb, qb, ones_n, ones_q, variant_args, qs, qsc_, xv, rs, bias
+    del x4, xs4, xb, qb, qbe, ones_n, ones_q, variant_args, qs, qsc_, xv, rs, bias
+    del q128, q8e, qsce
 
     # K4/K5 at the PQ path's shapes: M = 64, K = 256, u8 codes, N = 2^20.
     # Duplicated codes exercise the tie rules: rows 128..255 repeat rows
@@ -707,9 +746,12 @@ def main() -> int:
           'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel,
           'adc_scores_i8_entry_point_launches': i8_counts,
           'block_top2_variants_ms_q1': variant_q1_ms,
+          'block_top2_variants_ms_q32': variant_q32_ms,
           'block_top2_variants_rows_differing_from_plain': rows_differing,
+          'block_top2_bf16_unit_rows_err_over_tol': bf16_err_share[0],
           'k1_variants_block_pass_plus_lane8_merge_ms': variant_k1_ms,
-          'block_top2_bf16_cuda_core_bound_ms': bf16_cuda_core_bound_ms,
+          'block_pass_geometry': block_pass_geometry,
+          'product_only_ms': product_only_ms,
           'shapes': 'Q=64 D=768; block_top2(_int4, _bf16)/lane8_merge N=2^20; gather R=40; '
                     'adc_* Q=64 N=2^20 M=64 K=256 u8; lut_pq_scores Q=64 C=256 '
                     'N=131072 M=64 K=256 u8'})

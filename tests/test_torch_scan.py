@@ -97,14 +97,15 @@ def test_int8_dot_exact_past_one_chunk():
 # ----------------------------- fused scan -----------------------------
 
 
-@pytest.mark.parametrize('select', ['block2', 'lane8'])
-@pytest.mark.parametrize('masked', [False, True])
-@pytest.mark.parametrize('metric', [Metric.COSINE, Metric.EUCLIDEAN])
-def test_fused_scan_candidates_equal_jax(metric, masked, select):
-    """Rows equal and scores equal to fused_scan_candidates(use_pallas=False)."""
+# batch sizes at the block pass's query-tile edges (one query, one wgmma
+# N of 8, a full 64-query tile, one past it, the geometry's limit of 128)
+QUERY_TILE_EDGES = (1, 8, 64, 65, 128)
+
+
+def _candidates_equal_jax(metric, masked, select, nq):
     n = N_BY_SELECT[select]
     x = _corpus(n, metric)
-    q = _queries(metric)
+    q = _queries(metric, nq)
     codes, scale = jsc.quantize_rows_int8(x)
     bias = _bias(x, metric, _mask(n, masked))
     js, jr = jfs.fused_scan_candidates(
@@ -118,14 +119,26 @@ def test_fused_scan_candidates_equal_jax(metric, masked, select):
 
 
 @pytest.mark.parametrize('select', ['block2', 'lane8'])
-@pytest.mark.parametrize('coef', [-1.0, -2.0])
-def test_fused_scan_raw_scores_bit_equal(coef, select):
-    """The kernels' contract itself, for general (non-dyadic) queries: the
-    plain versions equal the JAX references before |q|^2 is added."""
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('metric', [Metric.COSINE, Metric.EUCLIDEAN])
+def test_fused_scan_candidates_equal_jax(metric, masked, select):
+    """Rows equal and scores equal to fused_scan_candidates(use_pallas=False)."""
+    _candidates_equal_jax(metric, masked, select, 5)
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('nq', QUERY_TILE_EDGES)
+def test_fused_scan_candidates_equal_jax_query_tiles(nq, select):
+    """The same at the batch sizes where the block pass's query tiles split
+    (on the card the kernel equals these plain versions bit for bit)."""
+    _candidates_equal_jax(Metric.EUCLIDEAN, True, select, nq)
+
+
+def _raw_scores_bit_equal(coef, select, nq):
     n = N_BY_SELECT[select]
     metric = Metric.EUCLIDEAN if coef == -2.0 else Metric.COSINE
     x = _corpus(n, metric, seed=10)
-    q = np.random.default_rng(11).standard_normal((7, D)).astype(np.float32)
+    q = np.random.default_rng(11).standard_normal((nq, D)).astype(np.float32)
     codes, scale = jsc.quantize_rows_int8(x)
     bias = _bias(x, metric, _mask(n, True, seed=12))
     jq8, jqsc = jsc.quantize_rows_int8_jax(jnp.asarray(q))
@@ -138,6 +151,47 @@ def test_fused_scan_raw_scores_bit_equal(coef, select):
                   torch.from_numpy(bias), 8192, coef)
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('coef', [-1.0, -2.0])
+def test_fused_scan_raw_scores_bit_equal(coef, select):
+    """The kernels' contract itself, for general (non-dyadic) queries: the
+    plain versions equal the JAX references before |q|^2 is added."""
+    _raw_scores_bit_equal(coef, select, 7)
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('nq', QUERY_TILE_EDGES)
+def test_fused_scan_raw_scores_bit_equal_query_tiles(nq, select):
+    _raw_scores_bit_equal(-1.0, select, nq)
+
+
+@pytest.mark.parametrize('block_rows', [128, 1024, 8192])
+@pytest.mark.parametrize('nb', [1, 2, 4, 8, 16, 128])
+def test_block_pass_plan_covers_each_cell_once(nb, block_rows):
+    """The block pass's CTAs (query tiles, lane halves, group splits) cover
+    every (block, group, lane, query) exactly once, for every batch the
+    fused scan admits (Q <= 128) in every variant; the tiles fit the
+    kernels' shapes, and a split keeps at least two groups."""
+    n = nb * block_rows
+    groups = block_rows // 128
+    for variant in ('int8', 'int4', 'bf16'):
+        for nq in range(1, 129):
+            plan = tfs.block_pass_plan(nq, n, block_rows, variant)
+            assert plan.nt in tfs.TILE_WIDTHS
+            assert plan.nwg == 1 or (variant == 'int8' and plan.nwg == 2 and plan.nt == 32)
+            assert 1 <= plan.qt <= plan.nt * plan.nwg <= tfs.QUERY_TILE[variant]
+            assert (plan.tiles - 1) * plan.qt < nq <= plan.tiles * plan.qt
+            assert groups % plan.splits == 0
+            assert plan.splits == 1 or groups // plan.splits >= 2
+            # a CTA's lanes are one of the two halves of 64 (its M tile)
+            seen = np.zeros((nb, groups, 2, nq), np.int8)
+            for blk, lanes, grp, queries in tfs.block_pass_ctas(plan, nq, n, block_rows):
+                assert lanes in (range(0, 64), range(64, 128))
+                seen[blk, grp.start:grp.stop, lanes.start // 64,
+                     queries.start:queries.stop] += 1
+            assert (seen == 1).all(), (variant, nq)
 
 
 def test_lane8_merge_ref_is_stable_top8():
@@ -167,6 +221,26 @@ def test_wrappers_refuse_cpu_tensors():
                           torch.zeros((2, 3), dtype=torch.int32), 1)
     assert tfs.block_top2.launches == 0
     assert tga.gather_rerank.launches == 0
+
+
+@pytest.mark.parametrize('case,reason', [
+    ('ok', None),
+    ('dtype', 'expected torch.int8 queries'),
+    ('row', '128-byte TMA boxes'),
+    ('dim', 'D = 3200 > 3072'),
+    ('n', 'must be a multiple of block_rows'),
+    ('scales', 'must be float32'),
+])
+def test_block_pass_names_what_it_refuses(case, reason):
+    """The wrapper's checks (run before a launch): None for inputs the
+    kernel takes, else the reason it raises with."""
+    n, d = 16384, {'row': 64, 'dim': 3200}.get(case, 128)
+    q = torch.zeros((3, d), dtype=torch.float32 if case == 'dtype' else torch.int8)
+    x = torch.zeros((n - (case == 'n'), d), dtype=torch.int8)
+    rs = torch.ones(x.shape[0], dtype=torch.float64 if case == 'scales' else torch.float32)
+    got = tfs._unsupported(q, torch.ones(3), x, rs, torch.zeros(x.shape[0]), 8192,
+                           torch.int8, torch.int8, d)
+    assert (got is None) if reason is None else reason in got
 
 
 def test_unported_corpora_raise():

@@ -132,14 +132,15 @@ def test_unpack_int4_equal_jax():
 # ----------------------------- int4 fused scan -----------------------------
 
 
-@pytest.mark.parametrize('select', ['block2', 'lane8'])
-@pytest.mark.parametrize('masked', [False, True])
-@pytest.mark.parametrize('metric', list(Metric))
-def test_fused_scan_candidates_int4_equal_jax(metric, masked, select):
-    """Rows equal and scores bit-equal to the JAX plain reference."""
+# batch sizes at the block pass's query-tile edges (one query, one wgmma
+# N of 8, two 32-query tiles, one past a 64-query tile, the limit of 128)
+QUERY_TILE_EDGES = (1, 8, 64, 65, 128)
+
+
+def _int4_equal_jax(metric, masked, select, nq):
     n = N_BY_SELECT[select]
     x = _corpus(n, metric)
-    q = _queries(metric)
+    q = _queries(metric, nq)
     packed, scale = jsc.quantize_rows_int4(x)
     bias = _bias(x, metric, _mask(n, masked))
     js, jr = jfs.fused_scan_candidates(
@@ -152,18 +153,29 @@ def test_fused_scan_candidates_int4_equal_jax(metric, masked, select):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-# ----------------------------- bf16 fused scan -----------------------------
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('masked', [False, True])
+@pytest.mark.parametrize('metric', list(Metric))
+def test_fused_scan_candidates_int4_equal_jax(metric, masked, select):
+    """Rows equal and scores bit-equal to the JAX plain reference."""
+    _int4_equal_jax(metric, masked, select, 5)
 
 
 @pytest.mark.parametrize('select', ['block2', 'lane8'])
-@pytest.mark.parametrize('masked', [False, True])
-@pytest.mark.parametrize('metric', [Metric.EUCLIDEAN, Metric.INNER_PRODUCT])
-def test_fused_scan_candidates_bf16_dyadic_bit_equal(metric, masked, select):
-    """On dyadic rows and queries every partial sum is exact, so the two
-    packages' float32 sums agree bit for bit whatever their order."""
+@pytest.mark.parametrize('nq', QUERY_TILE_EDGES)
+def test_fused_scan_candidates_int4_equal_jax_query_tiles(nq, select):
+    """The same at the batch sizes where the block pass's query tiles split
+    (on the card the kernel equals these plain versions bit for bit)."""
+    _int4_equal_jax(Metric.COSINE, True, select, nq)
+
+
+# ----------------------------- bf16 fused scan -----------------------------
+
+
+def _bf16_dyadic_bit_equal(metric, masked, select, nq):
     n = N_BY_SELECT[select]
     x = _duplicate(_dyadic((n, D), 6))
-    q = _dyadic((5, D), 7)
+    q = _dyadic((nq, D), 7)
     bias = _bias(x, metric, _mask(n, masked))
     tx, jx = _bf16(x)
     js, jr = jfs.fused_scan_candidates(
@@ -177,17 +189,24 @@ def test_fused_scan_candidates_bf16_dyadic_bit_equal(metric, masked, select):
 
 @pytest.mark.parametrize('select', ['block2', 'lane8'])
 @pytest.mark.parametrize('masked', [False, True])
-def test_fused_scan_candidates_bf16_cosine_within_tolerance(masked, select):
-    """General unit rows: the float32 sums of D exact bf16 products differ
-    with their order.  Each package's sum is within D * 2^-24 * sum|q_d x_d|
-    (<= 1.01 for unit rows rounded to bf16) of the exact one, plus half an
-    ulp of 2 for the added 1.0, so the two scores differ by at most
-    ``tol``.  Rows may differ only where candidates tie within ``2 * tol``:
-    wherever the rows differ, their exact scores lie within ``2 * tol``."""
+@pytest.mark.parametrize('metric', [Metric.EUCLIDEAN, Metric.INNER_PRODUCT])
+def test_fused_scan_candidates_bf16_dyadic_bit_equal(metric, masked, select):
+    """On dyadic rows and queries every partial sum is exact, so the two
+    packages' float32 sums agree bit for bit whatever their order."""
+    _bf16_dyadic_bit_equal(metric, masked, select, 5)
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('nq', QUERY_TILE_EDGES)
+def test_fused_scan_candidates_bf16_dyadic_bit_equal_query_tiles(nq, select):
+    _bf16_dyadic_bit_equal(Metric.EUCLIDEAN, True, select, nq)
+
+
+def _bf16_cosine_within_tolerance(masked, select, nq):
     n = N_BY_SELECT[select]
     metric = Metric.COSINE
     x = _corpus(n, metric, seed=8)
-    q = _queries(metric, seed=9)
+    q = _queries(metric, nq, seed=9)
     bias = _bias(x, metric, _mask(n, masked, seed=10))
     tx, jx = _bf16(x)
     js, jr = jfs.fused_scan_candidates(
@@ -206,6 +225,24 @@ def test_fused_scan_candidates_bf16_cosine_within_tolerance(masked, select):
     gap = np.abs(exact[rows_q, tr[differ]] - exact[rows_q, jr[differ]])
     assert (gap <= 2 * tol).all(), gap.max()
     assert differ.mean() < 0.01
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('masked', [False, True])
+def test_fused_scan_candidates_bf16_cosine_within_tolerance(masked, select):
+    """General unit rows: the float32 sums of D exact bf16 products differ
+    with their order.  Each package's sum is within D * 2^-24 * sum|q_d x_d|
+    (<= 1.01 for unit rows rounded to bf16) of the exact one, plus half an
+    ulp of 2 for the added 1.0, so the two scores differ by at most
+    ``tol``.  Rows may differ only where candidates tie within ``2 * tol``:
+    wherever the rows differ, their exact scores lie within ``2 * tol``."""
+    _bf16_cosine_within_tolerance(masked, select, 5)
+
+
+@pytest.mark.parametrize('select', ['block2', 'lane8'])
+@pytest.mark.parametrize('nq', QUERY_TILE_EDGES)
+def test_fused_scan_candidates_bf16_cosine_within_tolerance_query_tiles(nq, select):
+    _bf16_cosine_within_tolerance(True, select, nq)
 
 
 def test_fused_scan_raw_scores_int4_bit_equal():
