@@ -68,6 +68,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // The descriptor of a K-major operand tile of 128-byte rows as TMA writes it
 // with CU_TENSOR_MAP_SWIZZLE_128B: 8-row atoms of 1024 bytes (stride byte
 // offset 1024; the leading byte offset is unused), the tile 1024-byte

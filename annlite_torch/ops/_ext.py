@@ -40,10 +40,11 @@ SIGNATURES = {
         'annlite_gather_rerank': [_P] * 4 + [_I] * 6 + [_P],
     },
     'adc': {
-        'annlite_adc_scores': [_P] * 4 + [_I] * 6 + [_P],
-        'annlite_adc_block_top2': [_P] * 5 + [_I] * 7 + [_P],
-        'annlite_ivf_scores': [_P] * 4 + [_I] * 6 + [_P],
-        'annlite_ivf_block_top2': [_P] * 6 + [_I] * 6 + [_P],
+        'annlite_adc_scores': [_P] * 5 + [_I] * 6 + [_P] * 2,
+        'annlite_adc_block_top2': [_P] * 8 + [_I] * 7 + [_P] * 2,
+        'annlite_ivf_scores': [_P] * 5 + [_I] * 6 + [_P] * 2,
+        'annlite_ivf_block_top2': [_P] * 9 + [_I] * 6 + [_P] * 2,
+        'annlite_adc_info': [_I] * 3 + [_P],
     },
     'lut_pq': {
         'annlite_lut_pq_scores': [_P] * 4 + [_I] * 6 + [_P],

@@ -10,11 +10,14 @@ per-row int8 mask fused into the scan (BIG where it is 0).
 Kernels (``csrc/adc.cu``): ``adc_scores`` (K5, the full ``[Q, N]`` scores)
 and ``adc_block_top2`` (K4's block pass: per block of ``block_n`` rows the
 bucketed top-2 of `ops/fused_scan.py`), which ``lane8_merge`` finishes into a
-running top-8 per lane class.  Beside each sits its plain PyTorch version
-(``_adc_scores_ref``, ``_adc_block_top2_ref``), which sums over m in order
-0..M-1 in float32 as the kernels do: scores and rows are bit-equal.  The TPU
-kernels' one-hot products with a bf16 table are not carried over; the port
-computes what the JAX references (``adc_scores_ref``) compute, in float32.
+running top-8 per lane class.  Both run on one lookup core with the IVF
+kernels of `ops/ivf.py`; its launch geometry (query tile, row blocks per CTA,
+group splits, table chunks) is chosen here, :func:`adc_plan`.  Beside each
+kernel sits its plain PyTorch version (``_adc_scores_ref``,
+``_adc_block_top2_ref``), which sums over m in order 0..M-1 in float32 as the
+kernels do: scores and rows are bit-equal.  The TPU kernels' one-hot products
+with a bf16 table are not carried over; the port computes what the JAX
+references (``adc_scores_ref``) compute, in float32.
 
 The graph's PQ traversal scores each query's own candidates instead
 (``adc_scores_per_query``, ``lut_pq_scores``): K8 (``csrc/lut_pq.cu``)
@@ -24,7 +27,9 @@ table entries, in order 0..M-1 as ``adc_scores_per_query_ref`` does.
 The wrappers take the plain version for CPU tensors only; for CUDA tensors
 they launch the kernels or raise.
 """
-from typing import Optional
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,9 +37,25 @@ from . import BIG, _ext
 from .fused_scan import _bucket_top2, _lane8_merge_ref, lane8_merge
 from .topk import topk
 
-# one subspace of one query's float32 table must fit in the 227 KB of shared
-# memory a CUDA block may use (the kernel tiles the table over subspaces)
-MAX_ADC_CLUSTERS = 232448 // 4
+# shared memory a CUDA block may use (227 KB); the lookup core keeps 64 bytes
+# of it for the mbarriers and counters of its table ring
+MAX_SMEM = 232448
+RING_BYTES = MAX_SMEM - 64
+# one subspace of one query's float32 table (K rounded up to 4, a 16-byte
+# multiple for the bulk copy) must fit the ring: the kernels tile the table
+# over subspaces
+MAX_ADC_CLUSTERS = RING_BYTES // 4
+# query tiles of the lookup core (csrc/adc.cu instantiates these); a thread
+# holds two queries of a tile (one of QT = 1)
+QUERY_TILES = (1, 2, 4, 8, 16)
+MAX_QUERY_TILE = QUERY_TILES[-1]
+LANES_PER_THREAD = 4            # one 32-bit (u8) or 64-bit (u16) code load
+MAX_THREADS = 512
+# one CTA on each of an H100's 132 SMs: the plan splits each block's groups
+# over CTAs until the grid would outgrow one such wave
+TARGET_CTAS = 132
+# buffers of the table ring when the table streams
+NBUF = 2
 # rows per block of the deep select at K <= 256 (its bucketed top-2 is taken
 # per block, so this sets the candidates, as in the JAX package)
 BLOCK_N = 4096
@@ -138,6 +159,155 @@ def _lut_pq_scores_ref(ids, codes, dtable):
 # --------------------------------------------------------------------------
 
 
+class AdcPlan(NamedTuple):
+    """Launch geometry of the lookup core: ``tiles`` query tiles of ``qt``
+    queries (the last may hold fewer); CTAs of ``threads`` threads that hold
+    ``nbc`` row blocks; ``splits`` CTAs share the groups of one row block; the
+    tile's interleaved table streams through ``nbuf`` shared-memory buffers of
+    ``mc`` subspaces (resident when ``nchunks <= nbuf``)."""
+    qt: int
+    tiles: int
+    nbc: int
+    splits: int
+    mc: int
+    nbuf: int
+    nchunks: int
+    threads: int
+    grid: int
+    smem: int
+
+
+def _threads_per_block(qt: int) -> int:
+    """Threads that hold one row block's 128 lanes for a tile of ``qt``
+    queries: 32 lane quads times the threads that share one (two queries
+    each, one at QT = 1)."""
+    return 32 * max(1, qt // 2)
+
+
+@functools.lru_cache(maxsize=1024)
+def adc_plan(nq: int, n_rb: int, bn: int, m: int, k: int) -> AdcPlan:
+    """The lookup core's launch for ``nq`` queries over ``n_rb`` row blocks of
+    ``bn`` rows, ``m`` subspaces of ``k`` codewords.
+
+    Query tiles of at most :data:`MAX_QUERY_TILE` queries, balanced (17
+    queries take two tiles of 16, the sizes being :data:`QUERY_TILES`), as
+    wide as the
+    table allows: two buffers of one subspace each must fit the ring (QT = 1
+    needs one).  A CTA holds as many row blocks as 512 threads allow; while
+    the grid stays within one wave of :data:`TARGET_CTAS`, each block's
+    groups are split over twice as many CTAs (a power of two that divides the
+    groups), and the kernel's merge inserts the splits' partial top-2s in
+    order.  The table stays resident where the tile's whole table fits the
+    ring, else it streams through :data:`NBUF` buffers of ``mc`` subspaces
+    (fewer where a subspace fills the ring)."""
+    groups = bn // 128
+    kp = _round_up(k, 4)
+    fit = [t for t in QUERY_TILES if t == 1 or 2 * kp * t * 4 <= RING_BYTES]
+    if not fit or kp * 4 > RING_BYTES:
+        raise ValueError(f'K = {k} codewords exceed the kernel limit K <= {MAX_ADC_CLUSTERS}')
+    tiles = -(-nq // fit[-1])
+    qt = next(t for t in fit if t * tiles >= nq)
+    per_block = _threads_per_block(qt)
+    nbc = max(1, min(MAX_THREADS // per_block, n_rb))
+    nrbg = -(-n_rb // nbc)
+    splits = 1
+    while (tiles * nrbg * splits * 2 <= TARGET_CTAS and groups % (2 * splits) == 0):
+        splits *= 2
+    per_m = kp * qt * 4
+    if m * per_m <= RING_BYTES:
+        mc, nbuf = m, 1
+    else:
+        nbuf = NBUF
+        while nbuf > 1 and nbuf * per_m > RING_BYTES:
+            nbuf -= 1
+        nchunks = -(-m // (RING_BYTES // (nbuf * per_m)))
+        mc = -(-m // nchunks)
+    nchunks = -(-m // mc)
+    nbuf = min(nbuf, nchunks)
+    return AdcPlan(qt, tiles, nbc, splits, mc, nbuf, nchunks, per_block * nbc,
+                   tiles * splits * nrbg, nbuf * mc * per_m + 64)
+
+
+def adc_plan_ctas(plan: AdcPlan, nq: int, n_rb: int,
+                  groups: int) -> List[Tuple[int, range, range]]:
+    """The kernel's CTAs in ``blockIdx`` order (row-block group fastest,
+    then group split, then query tile), each as
+    ``(first row block, groups, queries)``; :func:`adc_plan_threads` gives the
+    cells of its threads."""
+    gps = groups // plan.splits
+    nrbg = plan.grid // (plan.tiles * plan.splits)
+    return [(c * plan.nbc, range(s * gps, s * gps + gps),
+             range(t * plan.qt, min(nq, t * plan.qt + plan.qt)))
+            for t in range(plan.tiles) for s in range(plan.splits) for c in range(nrbg)]
+
+
+def adc_plan_threads(plan: AdcPlan) -> List[Tuple[int, range, range]]:
+    """Each thread of a CTA, in ``threadIdx`` order, as the kernel computes
+    it: ``(row block within the CTA, lanes, queries within the tile)``."""
+    tq = max(1, plan.qt // 2)
+    qpt = plan.qt // tq
+    out = []
+    for t in range(plan.threads):
+        lq = t // tq
+        lane0 = (lq % 32) * LANES_PER_THREAD
+        q0 = (t % tq) * qpt
+        out.append((lq // 32, range(lane0, lane0 + LANES_PER_THREAD), range(q0, q0 + qpt)))
+    return out
+
+
+_EPILOGUES = {'adc_scores': 0, 'adc_block_top2': 1, 'ivf_scores': 2, 'ivf_block_top2': 3}
+
+
+def adc_info(entry: str, nq: int, n_rb: int, bn: int, m: int, k: int,
+             code_bytes: int = 1) -> dict:
+    """How ``entry`` ('adc_scores', 'adc_block_top2', 'ivf_scores',
+    'ivf_block_top2') runs at these shapes on the card: its plan, the
+    kernels one call launches (the table interleave unless the core reads
+    the table in place, the core, and the splits' merge of a top-2 entry),
+    and the registers and spilled bytes per thread of its instantiation.
+    Builds the kernels; needs a card."""
+    plan = adc_plan(nq, n_rb, bn, m, k)
+    out = (ctypes.c_int * 2)()
+    _ext.check(_ext.library('adc').annlite_adc_info(
+        code_bytes, _EPILOGUES[entry], plan.qt, out), 'adc_info')
+    launches = 1 + int(not _in_place(plan, k)) + int(entry.endswith('top2') and plan.splits > 1)
+    return {**plan._asdict(), 'kernel_launches': launches, 'registers': out[0],
+            'spill_bytes': out[1]}
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_args(plan: AdcPlan):
+    return (ctypes.c_int * 6)(plan.qt, plan.tiles, plan.nbc, plan.splits, plan.mc, plan.nbuf)
+
+
+def _in_place(plan: AdcPlan, k: int, dtable: Optional[torch.Tensor] = None) -> bool:
+    """Whether the core reads ``dtable [Q, M, K]`` as its table: at QT = 1
+    with K % 4 == 0 it already is the interleaved ``[tiles, m, kp, 1]``
+    (given the bulk copy's 16-byte alignment), so nothing is interleaved."""
+    return plan.qt == 1 and k % 4 == 0 and (dtable is None or dtable.data_ptr() % 16 == 0)
+
+
+def _table_scratch(plan: AdcPlan, dtable: torch.Tensor):
+    """Room for the interleaved tables ``[tiles, m, kp, qt]`` and its
+    pointer; ``(None, 0)`` (a null table) where the core reads ``dtable`` in
+    place."""
+    _, m, k = dtable.shape
+    if _in_place(plan, k, dtable):
+        return None, 0
+    tab = torch.empty(plan.tiles * m * _round_up(k, 4) * plan.qt, dtype=torch.float32,
+                      device=dtable.device)
+    return tab, tab.data_ptr()
+
+
+def _split_parts(plan: AdcPlan, q: int, width: int, device):
+    """The splits' partial top-2s and their groups (null without splits)."""
+    if plan.splits == 1:
+        return None, None, (0, 0)
+    ps = torch.empty((plan.splits, q, width), dtype=torch.float32, device=device)
+    pg = torch.empty((plan.splits, q, width), dtype=torch.int32, device=device)
+    return ps, pg, (ps.data_ptr(), pg.data_ptr())
+
+
 def _check(what, dtable, codes_t, mask):
     for t in (dtable, codes_t, mask):
         if not t.is_cuda or not t.is_contiguous():
@@ -145,24 +315,36 @@ def _check(what, dtable, codes_t, mask):
     q, m, k = dtable.shape
     if (dtable.dtype != torch.float32 or codes_t.dim() != 2 or codes_t.shape[0] != m
             or mask.dtype != torch.int8 or mask.shape != (codes_t.shape[1],)
-            or codes_t.shape[1] >= 2**31):
+            or codes_t.shape[1] >= 2**31 - 4 or q == 0):
         raise ValueError(f'{what}: unsupported inputs')
     if not supports_adc(k):
         raise ValueError(f'{what}: K = {k} codewords exceed the kernel limit '
                          f'K <= {MAX_ADC_CLUSTERS}')
+    if codes_t.data_ptr() % 8 or mask.data_ptr() % 4:
+        raise ValueError(f'{what}: codes must be 8-byte and the mask 4-byte aligned '
+                         '(the kernel loads 4 rows at once)')
     return q, m, k, codes_t.shape[1], _code_bytes(codes_t)
 
 
 def adc_scores_kernel(dtable, codes_t, mask):
     """Launch ``adc_scores`` (K5) -> float32 ``[Q, N]``, BIG where ``mask``
-    is 0."""
+    is 0.  Codes and mask of an N that is not a multiple of 4 are padded to
+    one (the kernel reads 4 rows per load and writes only the N)."""
     q, m, k, n, cb = _check('adc_scores', dtable, codes_t, mask)
+    ld = _round_up(n, 4)
+    if ld != n:
+        codes_t = torch.nn.functional.pad(codes_t.view(torch.int8) if cb == 1
+                                          else codes_t.view(torch.int16), (0, ld - n))
+        mask = torch.nn.functional.pad(mask, (0, ld - n))
+    plan = adc_plan(q, -(-n // BLOCK_N), BLOCK_N, m, k)
     out = torch.empty((q, n), dtype=torch.float32, device=dtable.device)
+    tab, tab_ptr = _table_scratch(plan, dtable)
     lib = _ext.library('adc')
     with torch.cuda.device(dtable.device):
         _ext.check(lib.annlite_adc_scores(
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            q, m, k, n, n, cb, _ext.stream_ptr(dtable)), 'adc_scores')
+            tab_ptr, q, m, k, n, ld, cb, _plan_args(plan), _ext.stream_ptr(dtable)),
+            'adc_scores')
     adc_scores_kernel.launches += 1
     return out
 
@@ -174,18 +356,21 @@ def adc_block_top2(dtable, codes_t, mask, block_n: int):
     """Launch ``adc_block_top2`` (K4's block pass) -> ``(s, r)`` as
     :func:`_adc_block_top2_ref`."""
     q, m, k, n, cb = _check('adc_block_top2', dtable, codes_t, mask)
-    if block_n % 128 or n % block_n or n < block_n:
+    if block_n % 128 or n % block_n or n < block_n or block_n // 128 > 0xFFFF:
         raise ValueError('adc_block_top2: N must be a multiple of block_n, '
-                         'itself a multiple of 128')
+                         'itself a multiple of 128 of at most 65535 groups')
     nb = n // block_n
+    plan = adc_plan(q, nb, block_n, m, k)
     s = torch.empty((q, nb * 256), dtype=torch.float32, device=dtable.device)
     r = torch.empty((q, nb * 256), dtype=torch.int32, device=dtable.device)
+    ps, pg, parts = _split_parts(plan, q, nb * 256, dtable.device)
+    tab, tab_ptr = _table_scratch(plan, dtable)
     lib = _ext.library('adc')
     with torch.cuda.device(dtable.device):
         _ext.check(lib.annlite_adc_block_top2(
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), s.data_ptr(),
-            r.data_ptr(), q, m, k, n, n, block_n, cb, _ext.stream_ptr(dtable)),
-            'adc_block_top2')
+            r.data_ptr(), *parts, tab_ptr, q, m, k, n, n, block_n, cb,
+            _plan_args(plan), _ext.stream_ptr(dtable)), 'adc_block_top2')
     adc_block_top2.launches += 1
     return s, r
 

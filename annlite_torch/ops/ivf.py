@@ -10,10 +10,11 @@ Kernels (``csrc/adc.cu``): ``ivf_scores`` (K7: ``[S, Q, BS]`` scores, the
 slot mask applied outside) and ``ivf_block_top2`` (K6's block pass: the slot
 mask and pad selections as BIG biases, bucketed top-2 with provenance
 ``j * BS + slot``), which ``lane8_merge`` finishes into a running top-8 per
-lane class.  Beside each sits its plain PyTorch version (``_ivf_scores_ref``,
-``_ivf_block_top2_ref``), bit-equal to it.  The wrappers take the plain
-version for CPU tensors only; for CUDA tensors they launch the kernels or
-raise.
+lane class; both run on the lookup core of `ops/adc.py`, planned by its
+``adc_plan``.  Beside each sits its plain PyTorch version
+(``_ivf_scores_ref``, ``_ivf_block_top2_ref``), bit-equal to it.  The
+wrappers take the plain version for CPU tensors only; for CUDA tensors they
+launch the kernels or raise.
 """
 from typing import Optional, Tuple, Union
 
@@ -22,7 +23,8 @@ import torch
 
 from ..device import resolve_device
 from . import BIG, _ext
-from .adc import MAX_ADC_CLUSTERS, _code_bytes, adc_scores_ref, supports_adc
+from .adc import (MAX_ADC_CLUSTERS, _code_bytes, _plan_args, _split_parts, _table_scratch,
+                  adc_plan, adc_scores_ref, supports_adc)
 from .fused_scan import _bucket_top2, _lane8_merge_ref, lane8_merge
 from .topk import topk
 
@@ -90,19 +92,24 @@ def _check(what, block_ids, dtable, codes_blocks, *more):
     if not supports_adc(k):
         raise ValueError(f'{what}: K = {k} codewords exceed the kernel limit '
                          f'K <= {MAX_ADC_CLUSTERS}')
+    if q == 0 or block_ids.shape[0] == 0 or codes_blocks.data_ptr() % 8:
+        raise ValueError(f'{what}: at least one query and one selection, and 8-byte '
+                         'aligned codes (the kernel loads 4 slots at once), expected')
     return q, m, k, block_ids.shape[0], codes_blocks.shape[2], _code_bytes(codes_blocks)
 
 
 def ivf_scores(block_ids, dtable, codes_blocks):
     """Launch ``ivf_scores`` (K7) -> float32 ``[S, Q, BS]``."""
     q, m, k, s, bs, cb = _check('ivf_scores', block_ids, dtable, codes_blocks)
+    plan = adc_plan(q, s, bs, m, k)
     out = torch.empty((s, q, bs), dtype=torch.float32, device=dtable.device)
+    tab, tab_ptr = _table_scratch(plan, dtable)
     lib = _ext.library('adc')
     with torch.cuda.device(dtable.device):
         _ext.check(lib.annlite_ivf_scores(
             block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
-            out.data_ptr(), s, q, m, k, bs, cb, _ext.stream_ptr(dtable)),
-            'ivf_scores')
+            out.data_ptr(), tab_ptr, s, q, m, k, bs, cb, _plan_args(plan),
+            _ext.stream_ptr(dtable)), 'ivf_scores')
     ivf_scores.launches += 1
     return out
 
@@ -117,14 +124,18 @@ def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks):
                                 mask_blocks)
     if mask_blocks.dtype != torch.int8 or mask_blocks.shape != (codes_blocks.shape[0], bs):
         raise ValueError('ivf_block_top2: unsupported mask')
+    plan = adc_plan(q, s, bs, m, k)
     so = torch.empty((q, s * 256), dtype=torch.float32, device=dtable.device)
     ro = torch.empty((q, s * 256), dtype=torch.int32, device=dtable.device)
+    ps, pg, parts = _split_parts(plan, q, s * 256, dtable.device)
+    tab, tab_ptr = _table_scratch(plan, dtable)
     lib = _ext.library('adc')
     with torch.cuda.device(dtable.device):
         _ext.check(lib.annlite_ivf_block_top2(
             block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
-            mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), s, q, m, k, bs,
-            cb, _ext.stream_ptr(dtable)), 'ivf_block_top2')
+            mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), *parts, tab_ptr,
+            s, q, m, k, bs, cb, _plan_args(plan), _ext.stream_ptr(dtable)),
+            'ivf_block_top2')
     ivf_block_top2.launches += 1
     return so, ro
 

@@ -15,9 +15,12 @@ line:
    and 128, the query tiles' edges) and at the facade's D = 128 (N = 131072,
    8 and 100 queries); the ADC kernels at
    M = 64, K = 256, u8 codes, N = 2^20 with 1, 64 and 100 queries, masked
-   and unmasked, once at K = 1024 with u16 codes (the m-tiled table), and
-   the IVF kernels on 1024 blocks of 1024 slots with probe sets of 1, 8 and
-   32 cells padded with -1; ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
+   and unmasked, at the lookup core's query-tile edges (15, 16, 17, 33
+   queries), at the facade's 131,072 rows, K5 at N = 12,293, once at
+   K = 1024 with u16 codes (the m-tiled table), and the IVF kernels on 1024
+   blocks of 1024 slots with probe sets of 1, 8 and 32 cells padded with -1
+   (the core's plan, kernels per call, registers and spills printed under
+   ``adc_geometry``); ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
    and 1, C = 256 and 512, M = 64/K = 256 u8 and K = 1024 u16 at M = 16 and
    64 (m-tiled), with ids -1, N and NO_ID; ``adc_scores_i8`` (K9) at the ADC
    shapes, also within 1% of K5, and once through its entry point; the
@@ -48,6 +51,7 @@ line:
    clustered rows, a PQ64 codec trained on the card, ``PQScanIndex`` at
    batch 64 with rerank 0 and 100 (recall@10 >= 0.99 against a float32 brute
    force), ``exact_topk``, a 5% mask, batch 1 against row 0 of batch 64;
+   K4 and K5 on the trained codes, checked and timed;
 9. ``ivf_pq``: the same corpus in 1024 VQ cells fitted on the card,
    ``IVFPQIndex(rerank=100)`` at batch 8 / n_probe 8 (recall@10 >= 0.98)
    and batch 1 / n_probe 1;
@@ -66,6 +70,16 @@ line:
    rerank=0`` (K8 through the facade): self-hits, a filtered search,
    in-place updates, deletes, ``check_integrity``, ``serving_searcher``
    against ``search_numpy``, dump and reopen.
+
+Bounds are the largest of bytes at the memory rate, operations at the
+peak rate for their type and, for the table-lookup kernels (K4-K9), the
+shared-memory lookups: each reads its table entry (4 bytes of a float32
+table, 1 byte of K9's int8 table, where one bank word can serve four
+queries) at 128 bytes per clock per SM at the card's maximum SM clock
+(``nvidia-smi``'s ``clocks.max.sm``, printed).  A lookup is a load
+operation, so ``bound_by`` is then ``operations``; the ``bounds`` line
+names each kernel's floor (``memory bytes``, ``arithmetic``,
+``shared-memory lookups``).
 
 Each main-path run resets the kernels' launch counters just before it and
 reads them just after; a kernel of the path that was never launched fails the
@@ -105,12 +119,24 @@ def fail(msg: str):
     raise SystemExit(f'chip_smoke: FAILED: {msg}')
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate for their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+# shared memory serves 128 bytes per clock on each SM (32 banks of 4 bytes);
+# the SM count and the clock are read from the card in main()
+SMEM_BYTES_PER_CLOCK_PER_SM = 128
+SMEM_BYTES_PER_S = [0.0]
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float, lookups: float = 0.0,
+          lookup_bytes: int = 4):
+    """(bound_ms, bound_by, bound_of): the largest of bytes over the memory
+    rate, operations over the peak rate for their type, and, for the
+    table-lookup kernels (K4-K9), ``lookups`` shared-memory reads of a
+    ``lookup_bytes`` table entry over the card's shared-memory rate."""
+    times = {'memory bytes': nbytes / HBM_BYTES_PER_S * 1e3,
+             'arithmetic': ops / ops_per_s * 1e3}
+    if lookups:
+        times['shared-memory lookups'] = lookups * lookup_bytes / SMEM_BYTES_PER_S[0] * 1e3
+    of = max(times, key=times.get)
+    return times[of], 'bytes' if of == 'memory bytes' else 'operations', of
 
 
 def main() -> int:
@@ -181,9 +207,17 @@ def main() -> int:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    # the lookup floor's rate: 128 B per clock per SM at the card's maximum SM clock
+    sm_mhz = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,nounits'],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SMEM_BYTES_PER_S[0] = SMEM_BYTES_PER_CLOCK_PER_SM * n_sms * sm_mhz * 1e6
     emit({'phase': 'build', 'build_s': build_s, 'device': device_name,
           'nvidia_smi': smi, 'torch': torch.__version__,
-          'cuda': torch.version.cuda})
+          'cuda': torch.version.cuda, 'sm_clock_max_mhz': sm_mhz, 'sms': n_sms,
+          'smem_bytes_per_s_for_lookup_floor': SMEM_BYTES_PER_S[0]})
 
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
 
@@ -513,12 +547,16 @@ def main() -> int:
         return dt, c.to(dtype)
 
     def check_adc(tag, dt, codes, mask, block_n):
+        """K5, and where N is a multiple of ``block_n`` K4 + lane8_merge."""
         tag = f'{tag} q={dt.shape[0]}'
         s = ad.adc_scores_kernel(dt, codes, mask)
         ref = ad._adc_scores_ref(dt, codes, mask)
         if not torch.equal(s, ref):
             fail(f'adc_scores {tag}: scores differ from the plain version')
         err['adc_scores'] = max(err['adc_scores'], maxerr(s, ref))
+        if codes.shape[1] % block_n:
+            checks.append(f'adc_scores {tag}: scores bit-equal')
+            return
         s2, r2 = ad.adc_block_top2(dt, codes, mask, block_n)
         s2r, r2r = ad._adc_block_top2_ref(dt, codes, mask, block_n)
         if not (torch.equal(r2, r2r) and torch.equal(s2, s2r)):
@@ -538,6 +576,17 @@ def main() -> int:
         for mtag, mk in (('unmasked', ones_pq), ('mask 50%', keep_pq)):
             check_adc(f'n=2^20 m=64 k=256 u8 {mtag}', dt_all[:nq_].contiguous(),
                       codes_pq, mk, 4096)
+    # the lookup core's query-tile edges: QT - 1, QT, QT + 1 and 2 QT + 1
+    qt_max = ad.MAX_QUERY_TILE
+    for nq_ in (qt_max - 1, qt_max, qt_max + 1, 2 * qt_max + 1):
+        check_adc('n=2^20 m=64 k=256 u8 mask 50%', dt_all[:nq_].contiguous(), codes_pq,
+                  keep_pq, 4096)
+    # the facade's PQ index (131,072 rows: 32 blocks), and K5 at an N that is
+    # not a multiple of 4 (its codes padded in the wrapper)
+    check_adc('n=131072 m=64 k=256 u8 mask 50%', dt_all[:64].contiguous(),
+              codes_pq[:, :131072].contiguous(), keep_pq[:131072].contiguous(), 4096)
+    check_adc('n=12293 m=64 k=256 u8 mask 50%', dt_all[:7].contiguous(),
+              codes_pq[:, :12293].contiguous(), keep_pq[:12293].contiguous(), 4096)
     # K = 1024 (u16): one query's table is 256 KB, so the kernel tiles it
     # over subspaces; the deep select's blocks shrink to 1024 rows
     dt_u, codes_u = adc_inputs(64, 1 << 17, 1024, torch.uint16)
@@ -630,7 +679,7 @@ def main() -> int:
     lut_library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         lbag_idx, lbag_w, mode='sum'))
     lut_bound = bound(64 * pm * pk * 4 + 64 * 256 * 4 + 64 * 256 * pm + 64 * 256 * 4,
-                      64.0 * 256 * pm, FP32_OPS_PER_S)
+                      64.0 * 256 * pm, FP32_OPS_PER_S, 64.0 * 256 * pm)
     del codes_g, ids_g, dt_g, lbag_idx, lbag_w, lbag
 
     # the ADC kernels' times at the PQ path's shape (Q = 64, N = 2^20); the
@@ -652,12 +701,25 @@ def main() -> int:
     library_ms = {'adc_scores': cuda_ms(lambda: torch.nn.functional.embedding_bag(
         bag_idx, bag_w, mode='sum'))}
     k4_ms = cuda_ms(lambda: fs.lane8_merge(*ad.adc_block_top2(dt64, codes_pq, ones_pq, 4096)))
+    k4_q1_ms = cuda_ms(lambda: ad.adc_block_top2(dt_all[:1].contiguous(), codes_pq, ones_pq,
+                                                 4096))
     nb_pq = npq // 4096
     adc_bounds = {
         'adc_scores': bound(npq * pm + 64 * pm * pk * 4 + npq + 64 * npq * 4,
-                            64.0 * npq * pm, FP32_OPS_PER_S),
+                            64.0 * npq * pm, FP32_OPS_PER_S, 64.0 * npq * pm),
         'adc_block_top2': bound(npq * pm + 64 * pm * pk * 4 + npq + 64 * nb_pq * 256 * 8,
-                                64.0 * npq * pm, FP32_OPS_PER_S),
+                                64.0 * npq * pm, FP32_OPS_PER_S, 64.0 * npq * pm),
+    }
+    # the core's plans at the shapes of this run, with the kernels one call
+    # launches, registers and spills
+    adc_geometry = {
+        'adc_block_top2 q64 n=2^20': ad.adc_info('adc_block_top2', 64, nb_pq, 4096, pm, pk),
+        'adc_block_top2 q1 n=2^20': ad.adc_info('adc_block_top2', 1, nb_pq, 4096, pm, pk),
+        'adc_scores q64 n=2^20': ad.adc_info('adc_scores', 64, nb_pq, 4096, pm, pk),
+        'adc_block_top2 q100 n=2^20': ad.adc_info('adc_block_top2', 100, nb_pq, 4096, pm, pk),
+        'adc_block_top2 q64 n=131072': ad.adc_info('adc_block_top2', 64, 32, 4096, pm, pk),
+        'adc_block_top2 q64 n=2^17 k=1024 u16': ad.adc_info('adc_block_top2', 64, 128, 1024,
+                                                             pm, 1024, 2),
     }
     k4_merge_bound = merge_bound(64, nb_pq)
 
@@ -696,7 +758,7 @@ def main() -> int:
     i8_library_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         bag_idx, bag_w8, mode='sum'))
     i8_bound = bound(npq * pm + 64 * pm * pk + npq + 64 * npq * 4 + 64 * 8,
-                     64.0 * npq * pm, FP32_OPS_PER_S)
+                     64.0 * npq * pm, FP32_OPS_PER_S, 64.0 * npq * pm, lookup_bytes=1)
     # K9's own entry point, adc_scores_i8, as a user calls it
     s_i8, i8_counts = drive('adc_scores_i8 q=64 n=2^20', ['adc_scores_i8'],
                             lambda: ai.adc_scores_i8(dt64, codes_pq, keep_pq))
@@ -743,6 +805,8 @@ def main() -> int:
           'k1_block_top2_plus_lane8_merge_ms': k1_ms,
           'k4_adc_block_top2_plus_lane8_merge_ms': k4_ms,
           'k4_lane8_merge_bound_ms': k4_merge_bound,
+          'k4_adc_block_top2_q1_ms': k4_q1_ms,
+          'adc_geometry': adc_geometry,
           'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel,
           'adc_scores_i8_entry_point_launches': i8_counts,
           'block_top2_variants_ms_q1': variant_q1_ms,
@@ -1014,11 +1078,31 @@ def main() -> int:
               'rerank0_batch64_ms': host_ms(lambda: pq_idx[0].search(qv, 10)),
               'rerank100_mask5pct_batch64_ms': host_ms(
                   lambda: idx100.search(qv, 10, mask=mask5))}
+    # K4 and K5 on this phase's trained PQ64 codes (skewed, unlike the random
+    # codes of kernels_vs_plain: bank conflicts depend on the codes), the
+    # queries' own tables; checked against the plain versions, then timed
+    codes_tr = torch.from_numpy(np.ascontiguousarray(codes.T)).to(dev)
+    dt_tr = pq.dist_mat(qv).to(dev).float().contiguous()
+    ones_tr = torch.ones(n2, dtype=torch.int8, device=dev)
+    s_tr, r_tr = ad.adc_block_top2(dt_tr, codes_tr, ones_tr, 4096)
+    s_tr_ref, r_tr_ref = ad._adc_block_top2_ref(dt_tr, codes_tr, ones_tr, 4096)
+    if not (torch.equal(r_tr, r_tr_ref) and torch.equal(s_tr, s_tr_ref)
+            and torch.equal(ad.adc_scores_kernel(dt_tr, codes_tr, ones_tr),
+                            ad._adc_scores_ref(dt_tr, codes_tr, ones_tr))):
+        fail('adc_block_top2 / adc_scores on the trained codes differ from the plain versions')
+    trained_codes_ms = {
+        'adc_block_top2': cuda_ms(lambda: ad.adc_block_top2(dt_tr, codes_tr, ones_tr, 4096)),
+        'adc_scores': cuda_ms(lambda: ad.adc_scores_kernel(dt_tr, codes_tr, ones_tr)),
+        'adc_block_top2_q1': cuda_ms(lambda: ad.adc_block_top2(
+            dt_tr[:1].contiguous(), codes_tr, ones_tr, 4096))}
+    del codes_tr, dt_tr, ones_tr, s_tr, r_tr, s_tr_ref, r_tr_ref
     emit({'phase': 'pq_scan', 'n': n2, 'dim': d2, 'm': 64, 'k': 256,
           'train_encode_s': pq_train_encode_s, 'host_ingest_s_two_indexes': pq_ingest_s,
           'recall_at_10_vs_fp32': pq_recall, 'latency_ms': pq_lat,
           'qps_rerank100_batch64': nq / pq_lat['rerank100_batch64_ms'] * 1e3,
           'masked_rows_in_mask': True, 'batch1_equals_batch64_row0': True,
+          'trained_codes_kernel_ms_q64': trained_codes_ms,
+          'random_codes_kernel_ms_q64': {k: adc_times[k][0] for k in adc_times},
           'launches': pq_counts})
     del pq_idx, idx100, res
 
@@ -1081,9 +1165,25 @@ def main() -> int:
     n8, n1 = len(sel8[0]) * 1024, len(sel1) * 1024
     bounds['ivf_block_top2'] = bound(n8 * 64 + 8 * 64 * 256 * 4 + len(sel8[0]) * 4 + n8
                                      + 8 * len(sel8[0]) * 256 * 8, 8.0 * n8 * 64,
-                                     FP32_OPS_PER_S)
+                                     FP32_OPS_PER_S, 8.0 * n8 * 64)
     bounds['ivf_scores'] = bound(n1 * 64 + 64 * 256 * 4 + len(sel1) * 4 + n1 * 4,
-                                 1.0 * n1 * 64, FP32_OPS_PER_S)
+                                 1.0 * n1 * 64, FP32_OPS_PER_S, 1.0 * n1 * 64)
+    # K7's library yardstick: one embedding_bag over the probed blocks' codes
+    # offset by m * K (the port never calls it)
+    bag7_idx = (cb[s1_ids.long().clamp_min(0)].long().permute(0, 2, 1)
+                + torch.arange(64, device=dev) * 256).reshape(-1, 64).contiguous()
+    bag7_w = dt1.reshape(1, 64 * 256).T.contiguous()
+    bag7 = torch.nn.functional.embedding_bag(bag7_idx, bag7_w, mode='sum')
+    if not torch.allclose(bag7.reshape(len(sel1), 1024, 1).permute(0, 2, 1),
+                          iv._ivf_scores_ref(s1_ids, dt1, cb), rtol=1e-5):
+        fail('embedding_bag does not compute the IVF scores')
+    library_ms['ivf_scores'] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        bag7_idx, bag7_w, mode='sum'))
+    del bag7_idx, bag7_w, bag7
+    ivf_geometry = {
+        f'ivf_block_top2 q8 S={len(sel8[0])}': ad.adc_info('ivf_block_top2', 8, len(sel8[0]),
+                                                            1024, 64, 256),
+        f'ivf_scores q1 S={len(sel1)}': ad.adc_info('ivf_scores', 1, len(sel1), 1024, 64, 256)}
     emit({'phase': 'ivf_pq', 'n': n2, 'cells': 1024, 'block': 1024,
           'build_s': ivf_build_s, 'recall_at_10_vs_fp32_probe8': ivf_recall,
           'scanned_fraction_probe8': {'mean': float(np.mean([len(s) for s in sel8])) * 1024 / n2,
@@ -1092,6 +1192,7 @@ def main() -> int:
           'latency_ms': ivf_lat, 'qps_probe8_batch8': 8 / ivf_lat['probe8_batch8_ms'] * 1e3,
           'k6_ivf_block_top2_plus_lane8_merge_ms': k6_ms,
           'k6_lane8_merge_bound_ms': merge_bound(8, len(sel8[0])),
+          'adc_geometry': ivf_geometry,
           'launches': ivf_counts, 'kernel_shapes': {
               'ivf_block_top2': f'Q=8 S={len(sel8[0])}', 'ivf_scores': f'Q=1 S={len(sel1)}'}})
     del ivf, cb, mb, xs_dev, xs_sq, xs, codes
@@ -1396,6 +1497,7 @@ def main() -> int:
                 'ivf_block_top2': 'annlite_tpu/ops/ivf.py:78',
                 'lut_pq_scores': 'annlite_tpu/ops/adc.py:283',
                 'adc_scores_i8': 'annlite_tpu/ops/adc_i8.py:56'}
+    emit({'phase': 'bounds', 'bound_of': {k: bounds[k][2] for k in kernels}})
     emit({'kernels': [
         {'name': k, 'route': 'cuda',
          'source': src.get(k, 'annlite_torch/csrc/adc.cu'), 'replaces': replaces[k],

@@ -141,3 +141,109 @@ def test_scale_blocks_and_limits():
     assert tadc.supports_adc(32768) and not tadc.supports_adc(tadc.MAX_ADC_CLUSTERS + 1)
     with pytest.raises(ValueError, match='uint8 or uint16'):
         tadc._code_bytes(torch.zeros(3, dtype=torch.int32))
+
+
+# the query tile's edges: Q = 1, QT - 1, QT, QT + 1 and 2 QT + 1 of the
+# lookup core's largest tile (csrc/adc.cu; ops/adc.py adc_plan)
+QT = tadc.MAX_QUERY_TILE
+TILE_EDGES = [1, QT - 1, QT, QT + 1, 2 * QT + 1]
+
+
+@pytest.mark.parametrize('nq', TILE_EDGES)
+def test_adc_scores_equal_jax_query_tiles(nq):
+    """The plain K5 (masked scores) against the JAX function on dyadic
+    tables, bit for bit, at the query tile's edges."""
+    dtable, codes = _inputs(nq, 8, 16, 1000, dyadic=True, seed=nq)
+    mask = _mask(1000, True)
+    want = np.asarray(jadc.adc_scores(dtable, codes.T, mask, use_pallas=False))
+    got = tadc.adc_scores(_t(dtable), _t(codes.T), _t(mask)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('nq', TILE_EDGES)
+def test_deep_select_candidates_equal_oracle_query_tiles(nq):
+    """The plain K4 block pass + lane8 merge against the numpy oracle from
+    the JAX reference's scores at the query tile's edges: rows equal, scores
+    bit-equal."""
+    n = 4 * 4096
+    dtable, codes = _inputs(nq, 8, 16, n, dyadic=True, seed=nq)
+    mask = _mask(n, True)
+    scores = np.asarray(jadc.adc_scores(dtable, codes.T, mask, use_pallas=False))
+    want_s, want_r = _oracle_select8(scores, 4096)
+    s, r = tadc._adc_block_top2_ref(_t(dtable), _t(codes.T), _t(mask), 4096)
+    s8, r8 = tfs._lane8_merge_ref(s, r)
+    np.testing.assert_array_equal(r8.numpy(), want_r)
+    np.testing.assert_array_equal(s8.numpy(), want_s)
+
+
+def _check_plan_covers(n_rb, bn, m, k, queries):
+    """For every batch in ``queries``: the core's CTAs cover each (row block,
+    group, query) once and each CTA's threads cover each (row block of the
+    CTA, lane, query of the tile) once, so each (block, group, lane, query)
+    is computed exactly once; the plan fits the kernel's limits."""
+    groups = bn // 128
+    thread_maps = {}
+    for nq in queries:
+        plan = tadc.adc_plan(nq, n_rb, bn, m, k)
+        assert plan.qt in tadc.QUERY_TILES and plan.qt <= tadc.MAX_QUERY_TILE
+        assert (plan.tiles - 1) * plan.qt < nq <= plan.tiles * plan.qt
+        assert groups % plan.splits == 0
+        assert plan.threads <= tadc.MAX_THREADS and plan.smem <= tadc.MAX_SMEM
+        assert 1 <= plan.nbuf <= min(plan.nchunks, tadc.NBUF) and (
+            (plan.nchunks - 1) * plan.mc < m <= plan.nchunks * plan.mc)
+        # a chunk of the interleaved table is whole 16-byte units
+        assert (plan.mc * -(-k // 4) * 4 * plan.qt * 4) % 16 == 0
+        key = (plan.qt, plan.nbc)
+        if key not in thread_maps:
+            seen = np.zeros((plan.nbc, 128, plan.qt), np.int32)
+            for blk, lanes, qs in tadc.adc_plan_threads(plan):
+                seen[blk, lanes.start:lanes.stop, qs.start:qs.stop] += 1
+            thread_maps[key] = bool((seen == 1).all())
+        assert thread_maps[key], (nq, plan)
+        ctas = tadc.adc_plan_ctas(plan, nq, n_rb, groups)
+        assert len(ctas) == plan.grid
+        seen = np.zeros((n_rb, groups, nq), np.int32)
+        for rb0, grp, qs in ctas:
+            seen[rb0:rb0 + plan.nbc, grp.start:grp.stop, qs.start:qs.stop] += 1
+        assert (seen == 1).all(), (nq, plan)
+
+
+@pytest.mark.parametrize('n_rb,bn,m,k', [
+    (256, 4096, 64, 256),     # the PQ path: 2^20 rows (K4, K5)
+    (32, 4096, 64, 256),      # the facade's PQ index: 131,072 rows
+    (4, 4096, 8, 16),         # the CPU tests' deep select
+    (3, 4096, 64, 256),       # K5 at N = 12,293 (a partial last block)
+    (128, 1024, 64, 1024),    # K = 1024, u16: the table tiled over subspaces
+    (4, 4096, 4, 58096),      # the largest K the kernels take
+])
+def test_adc_plan_covers_each_cell_once(n_rb, bn, m, k):
+    _check_plan_covers(n_rb, bn, m, k, range(1, 131))
+
+
+def test_adc_plan_limits():
+    assert tadc.MAX_ADC_CLUSTERS == (tadc.MAX_SMEM - 64) // 4 == 58096
+    with pytest.raises(ValueError, match='exceed'):
+        tadc.adc_plan(1, 1, 4096, 8, tadc.MAX_ADC_CLUSTERS + 1)
+    # the PQ path at batch 64: four tiles of 16, two row blocks per CTA, the
+    # table streamed through two buffers; batch 1 keeps its table resident
+    p64 = tadc.adc_plan(64, 256, 4096, 64, 256)
+    assert (p64.qt, p64.tiles, p64.threads, p64.splits, p64.nbuf) == (16, 4, 512, 1, 2)
+    p1 = tadc.adc_plan(1, 256, 4096, 64, 256)
+    assert (p1.qt, p1.nchunks, p1.nbuf) == (1, 1, 1) and p1.splits > 1
+
+
+@pytest.mark.parametrize('nq,k,in_place', [(1, 256, True), (1, 1024, True), (1, 18, False),
+                                           (2, 256, False), (64, 256, False)])
+def test_table_read_in_place(nq, k, in_place):
+    """At a query tile of 1 and K % 4 == 0 the table [Q, M, K] already is
+    the core's interleaved [tiles, M, kp, QT]: no scratch, no interleave
+    (one kernel launch fewer); otherwise scratch of tiles * M * kp * QT."""
+    dtable = torch.zeros((nq, 8, k), dtype=torch.float32)
+    plan = tadc.adc_plan(nq, 4, 4096, 8, k)
+    tab, ptr = tadc._table_scratch(plan, dtable)
+    assert (tab is None and ptr == 0) == in_place
+    if not in_place:
+        assert tab.numel() == plan.tiles * 8 * -(-k // 4) * 4 * plan.qt
+    # a table that is not 16-byte aligned is interleaved all the same
+    off = torch.zeros(nq * 8 * k + 1, dtype=torch.float32)[1:].view(nq, 8, k)
+    assert tadc._table_scratch(plan, off)[0] is not None

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from annlite_torch.index.ivf_pq import _dedup_candidates as t_dedup
+from annlite_torch.ops import adc as tadc
 from annlite_torch.ops import fused_scan as tfs
 from annlite_torch.ops import ivf as tivf
 from annlite_tpu.index.ivf_pq import _dedup_candidates as j_dedup
@@ -204,3 +205,39 @@ def test_dedup_candidates_equal_jax():
     for r in range(4):  # each row's best occurrence survives, once
         keep = tr.numpy()[r][td.numpy()[r] < BIG / 2]
         assert len(set(keep)) == len(keep) and set(keep) == set(rows[r][rows[r] >= 0])
+
+
+QT = tadc.MAX_QUERY_TILE
+TILE_EDGES = [1, QT - 1, QT, QT + 1, 2 * QT + 1]
+
+
+@pytest.mark.parametrize('nq', TILE_EDGES)
+def test_deep_select_candidates_equal_oracle_query_tiles(nq):
+    """The plain K6 block pass + lane8 merge against the numpy oracle from
+    the JAX reference at the query tile's edges (dyadic tables: exact), and
+    the plain K7 scores bit-equal to the JAX reference's."""
+    j, _, _, _ = _stores(n=2000 + 14 * 128, n_cells=3, bs=128)
+    j.delete_rows(np.arange(0, 4000, 5))
+    rng = np.random.default_rng(nq)
+    dtable = (rng.integers(0, 128, (nq, M, 16)) / 8.0).astype(np.float32)
+    sel = _sel(j, [0, 1, 2], pads=3)
+    cb, mb, _ = (np.array(a) for a in j.device_arrays())
+    ref = np.asarray(jivf._ivf_scan_ref(jnp.asarray(sel), dtable, cb, mb))
+    want_s, want_r = _oracle_ivf_select8(ref, sel, mb)
+    s, r = tivf._ivf_block_top2_ref(torch.from_numpy(sel), torch.from_numpy(dtable),
+                                    torch.from_numpy(cb), torch.from_numpy(mb))
+    s8, r8 = tfs._lane8_merge_ref(s, r)
+    np.testing.assert_array_equal(r8.numpy(), want_r)
+    np.testing.assert_array_equal(s8.numpy(), want_s)
+    got = tivf._ivf_scan_ref(torch.from_numpy(sel), torch.from_numpy(dtable),
+                             torch.from_numpy(cb), torch.from_numpy(mb))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize('n_sel', [8, 16, 40, 118, 139])
+def test_ivf_plan_covers_each_cell_once(n_sel):
+    """K6/K7's plans over the chip run's selections of 1,024-slot blocks
+    (probe sets padded with -1, and the IVF-PQ phase's 118-139 blocks):
+    every (selection, group, slot lane, query) once, for Q = 1..130."""
+    from test_torch_adc import _check_plan_covers
+    _check_plan_covers(n_sel, 1024, 64, 256, range(1, 131))
