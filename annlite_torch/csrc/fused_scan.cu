@@ -88,7 +88,7 @@
 // versions (_fused_scan_ref in annlite_torch/ops/fused_scan.py); qsc and rs
 // are 1 for bf16, which changes no bit.  The merge keeps the rule of
 // _fused_scan8_ref (a stable sort: an earlier candidate wins a tie) for
-// every tie; see lane8_merge_kernel for where merge_top8 departs from it.
+// every tie; see insert8 for where merge_top8 departs from it.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -566,17 +566,61 @@ int launch_block_top2(const void* q, const void* qsc, const void* x, const void*
   return (int)cudaGetLastError();
 }
 
-// One thread per (query, lane class): walk the blocks in ascending order and
-// insert each block's (mn1, row1) then (mn2, row2) into a sorted 8-deep
-// stack held in registers.  Output column 128 * k + lane is the k-th best.
-__global__ void __launch_bounds__(kLanes)
+// lane8_merge: the stable top-8 of each (query, lane class) over the nb
+// blocks' candidates (block 0's mn1, its mn2, block 1's mn1, ...).  Output
+// column 128 * k + lane is the k-th best.
+//
+// One thread per (query, lane class) walking all nb blocks (two dependent
+// loads a block, 8,192 threads at Q = 64) was latency-bound at 8-16x its
+// byte bound.  Here a CTA holds one query's chunk of 32 lane classes, so a
+// warp's loads are 128 contiguous bytes, and its `ranges` warps (planned in
+// ops/fused_scan.py lane8_merge_plan) walk `ranges` contiguous block ranges
+// side by side, each keeping its own stack in registers with kMergeUnroll
+// blocks' loads in flight.  The stacks then merge pairwise through shared
+// memory, the earlier range's stack receiving the later one's entries in
+// order.  Every insert shifts with strict '<', so this is exactly the
+// sequential walk: the stable top-8 of a concatenation is the in-order
+// insertion of the parts' stable top-8s (an entry a part drops has 8 of its
+// own ahead of it, no later than it, so it could not have entered), ties go
+// to the earlier part, and +inf fillers never enter.  split_merge and
+// adc_merge rest on the same argument.
+constexpr int kMergeMaxRanges = 16;
+constexpr int kMergeUnroll = 4;
+
+// Insert (cs, cr) into a sorted 8-deep stack.  Once the new candidate has its
+// slot, every entry below it moves down one place.  A compare-exchange
+// cascade with '<' alone (merge_top8) lets a displaced entry skip an equal
+// later one, which breaks the "earlier candidate first" order among ties;
+// shifting keeps the stack a stable sort of the candidates seen so far.
+__device__ __forceinline__ void insert8(float (&s)[8], int (&r)[8], float cs, int cr) {
+  bool placed = false;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const bool take = placed || cs < s[k];
+    placed = take;
+    const float ts = s[k];
+    const int tr = r[k];
+    s[k] = take ? cs : ts;
+    r[k] = take ? cr : tr;
+    cs = take ? ts : cs;
+    cr = take ? tr : cr;
+  }
+}
+
+// blockIdx.x = query * 4 + lane chunk; warp w walks blocks
+// [w * nb / ranges, (w + 1) * nb / ranges).
+__global__ void __launch_bounds__(kMergeMaxRanges * 32)
 lane8_merge_kernel(const float* __restrict__ s_in,   // [nq, nb * 256]
                    const int* __restrict__ r_in,     // [nq, nb * 256]
                    float* __restrict__ s_out,        // [nq, 1024]
                    int* __restrict__ r_out,          // [nq, 1024]
-                   int nb) {
-  const int q = blockIdx.x;
-  const int lane = threadIdx.x;
+                   int nb, int ranges) {
+  __shared__ float part_s[kMergeMaxRanges][8][32];
+  __shared__ int part_r[kMergeMaxRanges][8][32];
+  const int q = blockIdx.x >> 2;
+  const int l = threadIdx.x & 31;
+  const int lane = (blockIdx.x & 3) * 32 + l;
+  const int w = threadIdx.x >> 5;
   float s[8];
   int r[8];
 #pragma unroll
@@ -584,36 +628,57 @@ lane8_merge_kernel(const float* __restrict__ s_in,   // [nq, nb * 256]
     s[k] = __int_as_float(0x7f800000);
     r[k] = 0;
   }
-  const size_t row0 = (size_t)q * nb * 256 + lane;
-  for (int blk = 0; blk < nb; ++blk) {
+  const int hi = (int)((long long)(w + 1) * nb / ranges);
+  int blk = (int)((long long)w * nb / ranges);
+  const float* sp = s_in + (size_t)q * nb * 256 + lane;
+  const int* rp = r_in + (size_t)q * nb * 256 + lane;
+  for (; blk + kMergeUnroll <= hi; blk += kMergeUnroll) {
+    float cs[kMergeUnroll][2];
+    int cr[kMergeUnroll][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t at = row0 + (size_t)blk * 256 + h * kLanes;
-      float cs = __ldg(s_in + at);
-      int cr = __ldg(r_in + at);
-      // Once the new candidate has its slot, every entry below it moves down
-      // one place.  A compare-exchange cascade with '<' alone (merge_top8)
-      // lets a displaced entry skip an equal later one, which breaks the
-      // "earlier candidate first" order among ties; shifting keeps the stack
-      // a stable sort of the candidates seen so far.
-      bool placed = false;
+    for (int u = 0; u < kMergeUnroll; ++u) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const bool take = placed || cs < s[k];
-        placed = take;
-        const float ts = s[k];
-        const int tr = r[k];
-        s[k] = take ? cs : ts;
-        r[k] = take ? cr : tr;
-        cs = take ? ts : cs;
-        cr = take ? tr : cr;
+      for (int h = 0; h < 2; ++h) {
+        const size_t at = (size_t)(blk + u) * 256 + h * kLanes;
+        cs[u][h] = __ldg(sp + at);
+        cr[u][h] = __ldg(rp + at);
       }
     }
-  }
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    s_out[(size_t)q * 1024 + k * kLanes + lane] = s[k];
-    r_out[(size_t)q * 1024 + k * kLanes + lane] = r[k];
+    for (int u = 0; u < kMergeUnroll; ++u) {
+      insert8(s, r, cs[u][0], cr[u][0]);
+      insert8(s, r, cs[u][1], cr[u][1]);
+    }
+  }
+  for (; blk < hi; ++blk) {
+    const size_t at = (size_t)blk * 256;
+    const float s0 = __ldg(sp + at), s1 = __ldg(sp + at + kLanes);
+    const int r0 = __ldg(rp + at), r1 = __ldg(rp + at + kLanes);
+    insert8(s, r, s0, r0);
+    insert8(s, r, s1, r1);
+  }
+  // pairwise: in round d, warp w with w % 2d == d hands its stack (ranges
+  // [w, w + d)) to warp w - d, which inserts it in order after its own
+  for (int d = 1; d < ranges; d <<= 1) {
+    if ((w & (2 * d - 1)) == d) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        part_s[w][k][l] = s[k];
+        part_r[w][k][l] = r[k];
+      }
+    }
+    __syncthreads();
+    if ((w & (2 * d - 1)) == 0 && w + d < ranges) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) insert8(s, r, part_s[w + d][k][l], part_r[w + d][k][l]);
+    }
+  }
+  if (w == 0) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s_out[(size_t)q * 1024 + k * kLanes + lane] = s[k];
+      r_out[(size_t)q * 1024 + k * kLanes + lane] = r[k];
+    }
   }
 }
 
@@ -669,11 +734,15 @@ int annlite_block_pass_info(int v, int nt, int nwg, int d, int* out) {
   return 0;
 }
 
+// lane8_merge of [nq, nb * 256] candidates -> [nq, 1024], each lane class's
+// blocks walked as `ranges` contiguous ranges (1 <= ranges <= min(nb, 16)).
 int annlite_lane8_merge(const void* s_in, const void* r_in, void* s_out,
-                        void* r_out, int nq, int nb, void* stream) {
-  if (nq < 1 || nb < 1) return (int)cudaErrorInvalidValue;
-  lane8_merge_kernel<<<nq, kLanes, 0, (cudaStream_t)stream>>>(
-      (const float*)s_in, (const int*)r_in, (float*)s_out, (int*)r_out, nb);
+                        void* r_out, int nq, int nb, int ranges, void* stream) {
+  if (nq < 1 || nb < 1 || ranges < 1 || ranges > kMergeMaxRanges || ranges > nb) {
+    return (int)cudaErrorInvalidValue;
+  }
+  lane8_merge_kernel<<<nq * 4, ranges * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)s_in, (const int*)r_in, (float*)s_out, (int*)r_out, nb, ranges);
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ SIGNATURES = {
         'annlite_block_top2': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
         'annlite_block_top2_int4': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
         'annlite_block_top2_bf16': [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
-        'annlite_lane8_merge': [_P] * 4 + [_I] * 2 + [_P],
+        'annlite_lane8_merge': [_P] * 4 + [_I] * 3 + [_P],
         'annlite_block_pass_info': [_I] * 4 + [_P],
     },
     'gather': {
@@ -48,6 +48,9 @@ SIGNATURES = {
     },
     'lut_pq': {
         'annlite_lut_pq_scores': [_P] * 4 + [_I] * 6 + [_P],
+    },
+    'beam_pq': {
+        'annlite_beam_pq': [_P] * 7 + [_I] * 14 + [_P],
     },
     'adc_i8': {
         'annlite_adc_i8_scores': [_P] * 6 + [_I] * 5 + [_P],

@@ -24,16 +24,22 @@ same result as the JAX loop.
 
 Scorers: full-precision rows, the int8 row-quantized copy, PQ codes with a
 per-query table (K8, `ops/adc.py` ``lut_pq_scores``) and the
-packed-neighbour layout.  The loop itself has no kernel: its sorts, gathers
-and cumsum are PyTorch's.
+packed-neighbour layout.  On the card a PQ search is one kernel,
+``beam_pq`` (`csrc/beam_pq.cu`): one CTA runs one query's whole loop, seed,
+frontier, expansion, table lookups and both merge sorts, with the table and
+the list in shared memory (:func:`beam_pq_kernel`; its plain twin, which
+follows its algorithm step by step, is :func:`_beam_pq_ref`).  A geometry
+whose sort buffer exceeds :data:`MAX_SORT` slots keeps the eager loop
+around K8 (:func:`beam_pq_plan` decides).  The other traversals run the
+eager loop: its sorts, gathers and cumsum are PyTorch's.
 """
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..math import dot_f32
-from . import BIG
-from .adc import lut_pq_scores
+from . import BIG, _ext
+from .adc import _code_bytes, _lut_pq_scores_ref, lut_pq_scores
 
 # Sentinel id for empty slots.  Must sort after any real id AND keep the
 # dedup key ``id*2 + 1`` inside int32 (hence 2**29, not 2**30).
@@ -213,15 +219,177 @@ def beam_search_vectors_bounded(
     return _beam_loop(adjacency, entry_ids, L, B, iters, k, score)
 
 
+# ---------------------------------------------------------------------------
+# the PQ search as one kernel (beam_pq)
+# ---------------------------------------------------------------------------
+
+# The most slots of the kernel's sort buffer: P = next_pow2(L + B*R) above
+# it (ef 4096 at B 8, R 32, say) keeps the eager loop around K8.  At the
+# ceiling the state takes 96 KB of shared memory, beside a 64 KB table.
+MAX_SORT = 4096
+SMEM_LIMIT = 232448  # 227 KB: what a CTA of an H100 may use
+
+
+class BeamPqPlan(NamedTuple):
+    """Launch geometry of ``beam_pq``: ``sort_len`` slots of each sort
+    buffer, ``threads`` per CTA, the table in shared memory or read from
+    global memory (L2), and the CTA's dynamic shared memory in bytes."""
+    sort_len: int
+    threads: int
+    table_in_smem: bool
+    smem_bytes: int
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _sort_len(L: int, B: int, R: int) -> int:
+    """Slots of ``beam_pq``'s sorts: the list and one iteration's new
+    entries, rounded up to a power of two, at least 64 (a warp's keys)."""
+    return max(64, _next_pow2(L + B * R))
+
+
+def beam_pq_plan(L: int, B: int, R: int, M: int, K: int) -> Optional[BeamPqPlan]:
+    """The plan of one PQ search in one ``beam_pq`` launch, or None where
+    the sort buffer would exceed :data:`MAX_SORT` slots (the search then
+    takes the eager loop around K8).  The layout is ``csrc/beam_pq.cu``'s:
+    the table (when it fits, and its rows of M * K floats are whole 16-byte
+    copies; otherwise it is read from L2), 24 bytes per sort slot, the
+    selection of B ids and its count, one mbarrier.  Each thread holds two
+    of the sort's keys in registers, four or eight above 1,024 slots (at
+    most 512 threads)."""
+    B = min(B, L)
+    p = _sort_len(L, B, R)
+    if p > MAX_SORT:
+        return None
+    state = 24 * p + (B + 2) // 2 * 8 + 8
+    table = (4 * M * K + 15) // 16 * 16
+    in_smem = table + state <= SMEM_LIMIT and (M * K) % 4 == 0
+    threads = p // max(2, p // 512)
+    return BeamPqPlan(p, threads, in_smem, state + (table if in_smem else 0))
+
+
+def _f32_order_key(d: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 image of float32 ``d`` (-0.0
+    folded to +0.0), as int64."""
+    bits = torch.where(d == 0, torch.zeros_like(d), d).view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
+
+
+def _beam_pq_ref(adjacency, entry_ids, codes, dtable, L, B, iters, k):
+    """Plain twin of ``beam_pq``: its algorithm step by step, one query at a
+    time, with ``_lut_pq_scores_ref`` as the scorer.  Each query stops at
+    its first iteration without a frontier; each stable sort is a sort of
+    unique composite keys ``value * P + position`` over ``P`` slots
+    (:func:`_sort_len`), the padding after every real key.  Returns
+    ``(d [Q, k], ids [Q, k], iterations [Q])``; the eager loop's answer."""
+    n, r = adjacency.shape
+    q, e = entry_ids.shape
+    p = _sort_len(L, B, r)
+    pad = torch.full((p,), 1 << 62, dtype=torch.int64)
+    slot = torch.arange(p, dtype=torch.int64)
+    big = torch.tensor(BIG, dtype=torch.float32)
+
+    def sort_keys(hi):  # sorted composite keys over p slots, the real ones
+        return torch.sort(torch.cat([hi * p + slot[:len(hi)], pad[len(hi):]])).values[:len(hi)]
+
+    out_d, out_ids, out_it = [], [], []
+    for qi in range(q):
+        def score(ids):
+            return _lut_pq_scores_ref(ids[None], codes, dtable[qi:qi + 1])[0]
+
+        eids = entry_ids[qi].to(torch.int32)
+        d = torch.cat([score(eids), big.expand(L - e)])
+        dk = torch.cat([torch.where(d[:e] < BIG, eids, NO_ID).long(),
+                        torch.full((L - e,), NO_ID, dtype=torch.int64)]) * 2 + 1
+        order = sort_keys(_f32_order_key(d)) % p  # the seed: by d
+        d, dk = d[order], dk[order]
+        it = 0
+        while it < iters:
+            cand = ((dk & 1) == 1) & (d < BIG)
+            chosen = cand.nonzero()[:B, 0]
+            if len(chosen) == 0:
+                break
+            sel = dk[chosen] >> 1
+            dk[chosen] -= 1  # exp = 1
+            nbrs = torch.cat([adjacency[sel].reshape(-1).to(torch.int32),
+                              torch.full(((B - len(chosen)) * r,), -1, dtype=torch.int32)])
+            nd = score(nbrs)
+            ndk = torch.where(nd < BIG, nbrs, NO_ID).long() * 2 + 1
+            all_d, all_dk = torch.cat([d, nd]), torch.cat([dk, ndk])
+            key1 = sort_keys(all_dk)  # stable by dkey
+            dk1, pos1 = key1 // p, key1 % p
+            id1 = dk1 >> 1
+            dup = torch.cat([torch.zeros(1, dtype=torch.bool), id1[1:] == id1[:-1]])
+            d1 = torch.where(dup | (id1 >= NO_ID), big, all_d[pos1])
+            j = sort_keys(_f32_order_key(d1))[:L] % p  # stable by d
+            d, dk = d1[j], dk1[j]
+            it += 1
+        out_d.append(d[:k])
+        out_ids.append((dk[:k] >> 1).to(torch.int32))
+        out_it.append(it)
+    return torch.stack(out_d), torch.stack(out_ids), torch.tensor(out_it, dtype=torch.int32)
+
+
+def beam_pq_kernel(adjacency, entry_ids, codes, dtable, k: int, L: int, B: int, iters: int):
+    """Launch ``beam_pq`` (`csrc/beam_pq.cu`): the whole PQ beam search of
+    every query, one CTA each -> ``(d [Q, k], ids [Q, k], iterations [Q])``
+    as :func:`_beam_pq_ref`.  ``adjacency [N, R]`` int32, ``entry_ids [Q,
+    E]`` int32 (E <= L), ``codes [N, M]`` u8/u16, ``dtable [Q, M, K]``
+    float32, all contiguous on the card; B <= L, k <= L.  Raises beyond the
+    sort ceiling (:func:`beam_pq_plan`)."""
+    for t in (adjacency, entry_ids, codes, dtable):
+        if not t.is_cuda or not t.is_contiguous():
+            raise ValueError('beam_pq: expected contiguous CUDA tensors')
+    n, r = adjacency.shape
+    q, e = entry_ids.shape
+    _, m, kc = dtable.shape
+    if (adjacency.dtype != torch.int32 or entry_ids.dtype != torch.int32
+            or dtable.dtype != torch.float32 or dtable.shape[0] != q or codes.dim() != 2
+            or codes.shape != (n, m) or not 1 <= e <= L or not 1 <= B <= L
+            or not 1 <= k <= L or iters < 0 or q == 0):
+        raise ValueError('beam_pq: unsupported inputs')
+    _check_corpus_fits(n)
+    plan = beam_pq_plan(L, B, r, m, kc)
+    if plan is None:
+        raise ValueError(f'beam_pq: a sort buffer of more than {MAX_SORT} slots')
+    dev = dtable.device
+    d = torch.empty((q, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, k), dtype=torch.int32, device=dev)
+    its = torch.empty((q,), dtype=torch.int32, device=dev)
+    lib = _ext.library('beam_pq')
+    with torch.cuda.device(dev):
+        _ext.check(lib.annlite_beam_pq(
+            adjacency.data_ptr(), entry_ids.data_ptr(), codes.data_ptr(), dtable.data_ptr(),
+            d.data_ptr(), ids.data_ptr(), its.data_ptr(), n, r, e, m, kc, q, L, B, iters, k,
+            _code_bytes(codes), plan.sort_len, plan.threads, int(plan.table_in_smem),
+            _ext.stream_ptr(dtable)), 'beam_pq')
+    beam_pq_kernel.launches += 1
+    return d, ids, its
+
+
+beam_pq_kernel.launches = 0
+
+
 def beam_search_pq(
     adjacency, entry_ids, codes, dtable,
     k: int = 10, L: int = 64, B: int = 16, iters: Optional[int] = None,
 ):
-    """ADC beam search over PQ codes [N, M] with per-query table [Q, M, K]."""
+    """ADC beam search over PQ codes [N, M] with per-query table [Q, M, K].
+    On the CPU the eager loop with the plain scorer; on the card one
+    ``beam_pq`` launch, or, beyond its sort ceiling, the eager loop around
+    K8 (:func:`beam_pq_plan`)."""
     _check_corpus_fits(adjacency.shape[0])
     B = min(B, L)
     iters = _resolve_iters(iters, L, B)
-    return _beam_loop(adjacency, entry_ids, L, B, iters, k, make_pq_scorer(codes, dtable))
+    if adjacency.device.type == 'cpu' or beam_pq_plan(
+            L, B, adjacency.shape[1], codes.shape[1], dtable.shape[2]) is None:
+        return _beam_loop(adjacency, entry_ids, L, B, iters, k, make_pq_scorer(codes, dtable))
+    d, ids, _ = beam_pq_kernel(adjacency.to(torch.int32).contiguous(),
+                               entry_ids.to(torch.int32).contiguous(), codes.contiguous(),
+                               dtable.float().contiguous(), k, L, B, iters)
+    return d, ids
 
 
 def beam_search_int8(

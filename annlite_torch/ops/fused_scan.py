@@ -15,9 +15,12 @@ The corpus is int8 ``[N, D]`` with row scales, nibble-packed int4
 Kernels (``csrc/fused_scan.cu``): the block pass (K2 of the JAX package, one
 variant per corpus type: ``block_top2``, ``block_top2_int4``,
 ``block_top2_bf16``; wgmma products fed by TMA, the bucketed top-2 kept in
-registers) and ``lane8_merge`` (the running top-8, the rest of K1).  The
-block pass's launch geometry (query tiles, lane halves, group splits) is
-chosen here, :func:`block_pass_plan`.  Beside the kernels sit their plain
+registers) and ``lane8_merge`` (the running top-8, the rest of K1; each
+lane class's blocks walked as several ranges side by side and the ranges'
+stacks merged in order).  The launch geometries are chosen here: the block
+pass's query tiles, lane halves and group splits by
+:func:`block_pass_plan`, the merge's ranges by :func:`lane8_merge_plan`.
+Beside the kernels sit their plain
 PyTorch versions (``_fused_scan_ref``, ``_fused_scan8_ref``), which hold
 the JAX references' contract (`annlite_tpu/ops/fused_scan.py:269-322`):
 for int8 and int4 the same scores bit for bit and the same rows; for bf16
@@ -46,6 +49,10 @@ QUERY_TILE = {'int8': 64, 'int4': 32, 'bf16': 32}
 TILE_WIDTHS = (8, 16, 32)       # wgmma N of a warpgroup's share of a tile
 HALVES = 2                      # lane halves: 64 rows, one warpgroup's M tile
 TARGET_CTAS = 264               # two per SM of an H100 (132 SMs)
+# lane8_merge: at most 16 block ranges (warps) per (query, 32-lane chunk),
+# and as many as give 32 resident warps on each of the 132 SMs
+MERGE_MAX_RANGES = 16
+MERGE_TARGET_WARPS = 132 * 32
 
 
 def int8_dot(q8: torch.Tensor, x8: torch.Tensor) -> torch.Tensor:
@@ -139,6 +146,64 @@ def _lane8_merge_ref(s, r):
     order = torch.argsort(s3, dim=1, stable=True)[:, :8]
     return (torch.gather(s3, 1, order).reshape(nq, 1024),
             torch.gather(r3, 1, order).reshape(nq, 1024))
+
+
+def lane8_merge_plan(nq: int, nb: int) -> int:
+    """The block ranges per lane class of ``lane8_merge`` over ``nb``
+    blocks of ``nq`` queries: a CTA per (query, 32-lane chunk) holds one
+    warp per range, as many as bring the grid to
+    :data:`MERGE_TARGET_WARPS` warps, at most :data:`MERGE_MAX_RANGES` and
+    at most ``nb`` (every range holds a block).  At Q = 64 that is 16 (256
+    CTAs of 512 threads); at Q = 1 also 16, in 4 CTAs."""
+    want = -(-MERGE_TARGET_WARPS // (4 * nq))
+    return max(1, min(MERGE_MAX_RANGES, nb, want))
+
+
+def lane8_merge_ranges(nb: int, ranges: int) -> List[range]:
+    """The blocks of each range, in order: warp ``w`` walks
+    ``[w * nb // ranges, (w + 1) * nb // ranges)``."""
+    return [range(w * nb // ranges, (w + 1) * nb // ranges) for w in range(ranges)]
+
+
+def _insert8(ss, rr, cs, cr):
+    """The kernel's shifting insert of candidates ``(cs, cr) [...]`` into
+    sorted stacks ``(ss, rr) [..., 8]`` with strict '<'."""
+    take = (cs[..., None] < ss).int().cummax(dim=-1).values.bool()
+    before = torch.cat([torch.zeros_like(take[..., :1]), take[..., :-1]], dim=-1)
+    up_s = torch.cat([cs[..., None], ss[..., :-1]], dim=-1)
+    up_r = torch.cat([cr[..., None], rr[..., :-1]], dim=-1)
+    new_s = torch.where(before, up_s, cs[..., None].expand_as(ss))
+    new_r = torch.where(before, up_r, cr[..., None].expand_as(rr))
+    return torch.where(take, new_s, ss), torch.where(take, new_r, rr)
+
+
+def _lane8_merge_split(s, r, ranges: int):
+    """CPU twin of the ``lane8_merge`` kernel over ``ranges`` block ranges
+    (:func:`lane8_merge_ranges`): each range's sequential walk, then the
+    kernel's pairwise merges, the later range's stack inserted in order.
+    Equal to :func:`_lane8_merge_ref` wherever each lane class has 8 finite
+    candidates; where it has fewer, the stacks keep their (+inf, 0)
+    fillers, as the kernel's."""
+    nq, c = s.shape
+    s3 = s.reshape(nq, c // 128, 128)
+    r3 = r.reshape(nq, c // 128, 128)
+    stacks = []
+    for blocks in lane8_merge_ranges(c // 256, ranges):
+        ss = torch.full((nq, 128, 8), float('inf'), dtype=s.dtype, device=s.device)
+        rr = torch.zeros((nq, 128, 8), dtype=r.dtype, device=r.device)
+        for i in range(2 * blocks.start, 2 * blocks.stop):
+            ss, rr = _insert8(ss, rr, s3[:, i], r3[:, i])
+        stacks.append((ss, rr))
+    d = 1
+    while d < ranges:
+        for w in range(0, ranges - d, 2 * d):
+            ss, rr = stacks[w]
+            for k in range(8):
+                ss, rr = _insert8(ss, rr, stacks[w + d][0][..., k], stacks[w + d][1][..., k])
+            stacks[w] = (ss, rr)
+        d *= 2
+    ss, rr = stacks[0]
+    return (ss.permute(0, 2, 1).reshape(nq, 1024), rr.permute(0, 2, 1).reshape(nq, 1024))
 
 
 # --------------------------------------------------------------------------
@@ -309,7 +374,8 @@ block_top2_bf16.launches = 0
 
 def lane8_merge(s, r):
     """Launch ``lane8_merge`` (K1's running top-8) over a block pass's
-    ``[Q, nb*256]`` candidates -> ``[Q, 1024]``."""
+    ``[Q, nb*256]`` candidates -> ``[Q, 1024]``, the blocks walked in
+    :func:`lane8_merge_plan`'s ranges."""
     _check_cuda(s, r)
     nq, c = s.shape
     if (s.dtype != torch.float32 or r.dtype != torch.int32 or r.shape != s.shape
@@ -321,7 +387,7 @@ def lane8_merge(s, r):
     with torch.cuda.device(s.device):
         _ext.check(lib.annlite_lane8_merge(
             s.data_ptr(), r.data_ptr(), s8.data_ptr(), r8.data_ptr(), nq,
-            c // 256, _ext.stream_ptr(s)), 'lane8_merge')
+            c // 256, lane8_merge_plan(nq, c // 256), _ext.stream_ptr(s)), 'lane8_merge')
     lane8_merge.launches += 1
     return s8, r8
 

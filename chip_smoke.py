@@ -22,12 +22,21 @@ line:
    (the core's plan, kernels per call, registers and spills printed under
    ``adc_geometry``); ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
    and 1, C = 256 and 512, M = 64/K = 256 u8 and K = 1024 u16 at M = 16 and
-   64 (m-tiled), with ids -1, N and NO_ID; ``adc_scores_i8`` (K9) at the ADC
+   64 (m-tiled), with ids -1, N and NO_ID; ``beam_pq`` (K8 with its loop)
+   against the eager loop with the plain scorer over the whole list, ids and
+   distances bit-equal: a random degree-32 graph of 131,072 rows, PQ64 u8
+   codes, ef 128, B 8, Q = 64 and 1, an invalid entry and a query with no
+   valid entry, a budget of 3 iterations, u16 codes at K = 1024 (the
+   table read from global memory), and ef 1024 and 2048 at Q = 8 (2,048 and
+   4,096 sort slots); beyond the sort ceiling (ef 4096) the
+   search must take the eager loop around K8; ``adc_scores_i8`` (K9) at the ADC
    shapes, also within 1% of K5, and once through its entry point; the
    int4 and bf16 block passes (``block_top2_int4``, ``block_top2_bf16``) and
    ``lane8_merge`` over their candidates at N = 2^20, D = 768, Q = 64, 1, 5,
    65 and 128, cosine, L2 and a 5% mask, bf16 also on dyadic rows, and at
-   65,536 x 256 and x 3072, Q = 17.  Rows equal and scores bit-equal for the
+   65,536 x 256 and x 3072, Q = 17; ``lane8_merge`` on tie-heavy candidates
+   at 1, 3, 128 and 256 blocks, Q = 64 and 1, timed at 128 and 256.  Rows
+   equal and scores bit-equal for the
    scan (bf16: on dyadic rows; within a stated tolerance on unit rows, rows
    equal but for near-ties), ADC and table kernels, the stated tolerance for
    the rerank kernel.  Each block pass's time at Q = 64, 32 and 1, its geometry
@@ -61,13 +70,16 @@ line:
 11. ``graph``: the JAX package's ``bench.py`` graph recipe, 131,072 x 128
    clustered rows, a host Vamana build (R 32, l_build 64) on every host
    thread, ef 128, beam width 8: recall@10 >= 0.95 with vector traversal,
-   >= 0.90 with PQ64 table traversal (K8) and rerank 100 (rerank 0, int8
-   and packed traversal printed), 50% and 5% masks (the 5% one equals the
-   exact masked scan), soft deletes, ``device_searcher`` against
-   ``search``, latency of each traversal and K8's share of a PQ search;
+   >= 0.90 with PQ64 table traversal (``beam_pq``) and rerank 100 (rerank
+   0, int8 and packed traversal printed), 50% and 5% masks (the 5% one
+   equals the exact masked scan), soft deletes, ``device_searcher`` against
+   ``search``, latency of each traversal, the kernels one PQ search
+   launches, ``beam_pq`` on this graph against the eager loop and timed at
+   Q = 64 and 1 (its bound from the iterations run), and a profile of the PQ
+   searches at batch 64 and 1 (kernel launches, the device's idle share);
 12. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
    of phase 7's docs, without a codec and with ``n_subvectors=64,
-   rerank=0`` (K8 through the facade): self-hits, a filtered search,
+   rerank=0`` (``beam_pq`` through the facade): self-hits, a filtered search,
    in-place updates, deletes, ``check_integrity``, ``serving_searcher``
    against ``search_numpy``, dump and reopen.
 
@@ -179,7 +191,8 @@ def main() -> int:
                'gather_rerank': ga.gather_rerank,
                'adc_scores': ad.adc_scores_kernel, 'adc_block_top2': ad.adc_block_top2,
                'ivf_scores': iv.ivf_scores, 'ivf_block_top2': iv.ivf_block_top2,
-               'lut_pq_scores': ad.lut_pq_kernel, 'adc_scores_i8': ai.adc_i8_kernel}
+               'lut_pq_scores': ad.lut_pq_kernel, 'adc_scores_i8': ai.adc_i8_kernel,
+               'beam_pq': bm.beam_pq_kernel}
     main_launches = {k: 0 for k in kernels}
 
     def drive(path_name: str, expected, fn):
@@ -484,6 +497,35 @@ def main() -> int:
         xe8, xes8 = quantize_rows_int8_device(xe)
         check_scan(f'n=65536 d={de} cosine mask50%', qe8, qesc, xe8, xes8, keep_e, -1.0, True)
     del xe, qe, qe8, qesc, xe4, xes4, xed, qed, xe8, xes8, keep_e
+
+    # lane8_merge on tie-heavy candidates at nb = 1, 3, 128 and 256 blocks,
+    # Q = 64 and 1: scores of 0..3, block 1 a copy of block 0, blocks 4 and
+    # the last +inf (nb >= 128), rows all distinct.  From nb = 4 on against
+    # the stable sort (8 finite candidates per lane class), below against
+    # the sequential walk's (+inf, 0) fillers (the CPU twin with one range).
+    # Timed at nb = 128 and 256 (the flat and the PQ paths' blocks).
+    lane8_ms, lane8_bounds = {}, {}
+    for nq_ in (64, 1):
+        for nb_ in (1, 3, 128, 256):
+            s_t = torch.randint(0, 4, (nq_, nb_ * 256), device=dev, generator=g).float()
+            if nb_ >= 128:
+                s_t[:, 256:512] = s_t[:, 0:256]
+                s_t[:, 1024:1280] = float('inf')
+                s_t[:, -256:] = float('inf')
+            r_t = torch.randperm(nq_ * nb_ * 256, device=dev, generator=g,
+                                 dtype=torch.int32).reshape(nq_, -1)
+            s8, r8 = fs.lane8_merge(s_t, r_t)
+            want = (fs._lane8_merge_ref(s_t, r_t) if nb_ >= 4
+                    else fs._lane8_merge_split(s_t, r_t, 1))
+            if not (torch.equal(r8, want[1]) and torch.equal(s8, want[0])):
+                fail(f'lane8_merge tie-heavy nb={nb_} q={nq_}: differs from the plain version')
+            err['lane8_merge'] = max(err['lane8_merge'], maxerr(s8, want[0]))
+            checks.append(f'lane8_merge tie-heavy nb={nb_} q={nq_} '
+                          f'({fs.lane8_merge_plan(nq_, nb_)} ranges): rows and scores bit-equal')
+            if nb_ >= 128:
+                lane8_ms[f'nb{nb_}_q{nq_}'] = cuda_ms(lambda: fs.lane8_merge(s_t, r_t))
+                lane8_bounds[f'nb{nb_}_q{nq_}'] = merge_bound(nq_, nb_)[0]
+    del s_t, r_t, s8, r8, want
     # times at Q = 64 (cosine, unmasked), 32 and 1; the bounds count the
     # corpus, row scales, biases and queries read once and the candidates
     # written once.  Each block pass's geometry (query tiles, splits, grid,
@@ -680,7 +722,69 @@ def main() -> int:
         lbag_idx, lbag_w, mode='sum'))
     lut_bound = bound(64 * pm * pk * 4 + 64 * 256 * 4 + 64 * 256 * pm + 64 * 256 * 4,
                       64.0 * 256 * pm, FP32_OPS_PER_S, 64.0 * 256 * pm)
-    del codes_g, ids_g, dt_g, lbag_idx, lbag_w, lbag
+    del ids_g, dt_g, lbag_idx, lbag_w, lbag
+
+    # beam_pq (K8 with its loop) at the graph phase's width: 131,072 rows, a
+    # random degree-32 adjacency with 10% -1 pads, PQ64 u8 codes, ef 128,
+    # B 8, 8 entries per query (a -1 in query 0, a duplicate in query 2,
+    # only -1s in query 1); Q = 64 and 1, a budget of 3 iterations, and u16
+    # codes at K = 1024, whose 256 KB table is read from global memory.
+    # Held to the eager loop with the plain scorer over the whole list
+    # (k = L): ids and distances bit-equal.
+    adj_b = torch.randint(0, ng, (ng, 32), device=dev, generator=g, dtype=torch.int32)
+    adj_b[torch.rand((ng, 32), device=dev, generator=g) < 0.1] = -1
+    ent_b = torch.randint(0, ng, (64, 8), device=dev, generator=g, dtype=torch.int32)
+    ent_b[0, 0] = -1
+    ent_b[1, :] = -1
+    ent_b[2, 1] = ent_b[2, 0]
+    codes_b16 = torch.randint(0, 1024, (ng, pm), device=dev, generator=g,
+                              dtype=torch.int32).to(torch.uint16)
+    dt_b = torch.rand((64, pm, pk), device=dev, generator=g) * 10
+    dt_b16 = torch.rand((64, pm, 1024), device=dev, generator=g) * 10
+
+    def check_beam(tag, adj, entry, codes, dt, L, B, iters):
+        d, ids, its = bm.beam_pq_kernel(adj, entry, codes, dt, L, L, B, iters)
+        d_ref, ids_ref = bm._beam_loop(adj, entry, L, B, iters, L,
+                                       lambda c: ad._lut_pq_scores_ref(c, codes, dt))
+        tag = f'{tag} q={entry.shape[0]} ef={L} B={B} iters={iters}'
+        if not (torch.equal(ids, ids_ref) and torch.equal(d, d_ref)):
+            fail(f'beam_pq {tag}: ids or distances differ from the eager loop')
+        err['beam_pq'] = max(err['beam_pq'], maxerr(d, d_ref))
+        checks.append(f'beam_pq {tag}: ids and distances bit-equal to the eager loop, '
+                      f'{int(its.max())} iterations at most')
+        return its
+
+    plan_b = bm.beam_pq_plan(128, 8, 32, pm, pk)
+    plan_b16 = bm.beam_pq_plan(128, 8, 32, pm, 1024)
+    if not plan_b.table_in_smem or plan_b16.table_in_smem:
+        fail('beam_pq: the plans do not take both table variants')
+    beam_its = check_beam('n=131072 m=64 k=256 u8', adj_b, ent_b, codes_g, dt_b, 128, 8, 32)
+    if int(beam_its[1]) != 0 or int(beam_its.max()) < 3:
+        fail(f'beam_pq: iterations {beam_its.tolist()} (query 1 has no valid entry)')
+    check_beam('n=131072 m=64 k=256 u8', adj_b, ent_b[:1].contiguous(), codes_g,
+               dt_b[:1].contiguous(), 128, 8, 32)
+    check_beam('n=131072 m=64 k=256 u8', adj_b, ent_b, codes_g, dt_b, 128, 8, 3)
+    check_beam('n=131072 m=64 k=1024 u16 (table in L2)', adj_b, ent_b, codes_b16, dt_b16,
+               128, 8, 32)
+    # 2,048 and 4,096 sort slots: four and eight keys a thread
+    for ef_, b_, it_ in ((1024, 8, 12), (2048, 64, 8)):
+        check_beam('n=131072 m=64 k=256 u8', adj_b, ent_b[:8].contiguous(), codes_g,
+                   dt_b[:8].contiguous(), ef_, b_, it_)
+    # beyond the sort ceiling (ef 4096: 8,192 slots) the search keeps the
+    # eager loop around K8, as a user's call takes it
+    (d_c, ids_c), ceiling_counts = drive(
+        'beam_search_pq beyond the sort ceiling', ['lut_pq_scores'],
+        lambda: bm.beam_search_pq(adj_b, ent_b[:8].contiguous(), codes_g,
+                                  dt_b[:8].contiguous(), k=4096, L=4096, B=8, iters=3))
+    d_cr, ids_cr = bm._beam_loop(adj_b, ent_b[:8].contiguous(), 4096, 8, 3, 4096,
+                                 lambda c: ad._lut_pq_scores_ref(c, codes_g, dt_b[:8]))
+    if (bm.beam_pq_plan(4096, 8, 32, pm, pk) is not None or ceiling_counts['beam_pq']
+            or not (torch.equal(ids_c, ids_cr) and torch.equal(d_c, d_cr))):
+        fail('beam_search_pq beyond the ceiling: not the eager loop around K8, or it differs')
+    checks.append('beam_search_pq ef=4096 (8,192 slots): the eager loop around '
+                  'lut_pq_scores, equal to the plain scorer\'s')
+    beam_plans = {'ef128 u8 k256': plan_b._asdict(), 'ef128 u16 k1024': plan_b16._asdict()}
+    del codes_g, adj_b, ent_b, codes_b16, dt_b, dt_b16, d_c, ids_c, d_cr, ids_cr
 
     # the ADC kernels' times at the PQ path's shape (Q = 64, N = 2^20); the
     # library yardstick for K5 is one embedding_bag over the codes offset by
@@ -816,6 +920,10 @@ def main() -> int:
           'k1_variants_block_pass_plus_lane8_merge_ms': variant_k1_ms,
           'block_pass_geometry': block_pass_geometry,
           'product_only_ms': product_only_ms,
+          'lane8_merge_tie_heavy_ms': lane8_ms, 'lane8_merge_tie_heavy_bound_ms': lane8_bounds,
+          'lane8_merge_ranges': {f'nb{b}_q{q_}': fs.lane8_merge_plan(q_, b)
+                                 for b in (128, 256) for q_ in (64, 1)},
+          'beam_pq_plans': beam_plans,
           'shapes': 'Q=64 D=768; block_top2(_int4, _bf16)/lane8_merge N=2^20; gather R=40; '
                     'adc_* Q=64 N=2^20 M=64 K=256 u8; lut_pq_scores Q=64 C=256 '
                     'N=131072 M=64 K=256 u8'})
@@ -1320,7 +1428,7 @@ def main() -> int:
                            for name, idx in gidx.items()}
         return out
 
-    gres, graph_counts = drive('graph 131072 x 128', ['lut_pq_scores'], graph_path)
+    gres, graph_counts = drive('graph 131072 x 128', ['beam_pq'], graph_path)
     graph_recall = {name: recall_at_10(gres[name][1], ggt) for name in gidx}
     for name in gidx:
         dd, ii = gres[name]
@@ -1347,46 +1455,83 @@ def main() -> int:
     if np.isin(ids_del, dead).any() or np.isin(ids_del_sv.cpu().numpy(), dead).any():
         fail('graph: a deleted row was returned')
     del gdel
-    # latency of each traversal (device_searcher, host clock), and K8's
-    # share of a PQ search: its launches in one search times its time
-    graph_lat, k8_share = {}, {}
+    # latency of each traversal (device_searcher, host clock), and the
+    # port's kernels launched by one PQ search
+    graph_lat, pq_launches = {}, {}
     for name, idx in gidx.items():
         run = idx.device_searcher(limit=10)
         graph_lat[f'{name}_batch64_ms'] = host_ms(lambda: run(gq_t), reps=10)
         graph_lat[f'{name}_batch1_ms'] = host_ms(lambda: run(gq_t[:1]), reps=10)
         if name.startswith('pq'):
-            ad.lut_pq_kernel.launches = 0
+            for k in kernels.values():
+                k.launches = 0
             run(gq_t)
-            n8 = ad.lut_pq_kernel.launches
-            k8_share[name] = {'launches_per_search': n8,
-                              'k8_ms_x_launches': n8 * lut_times[0],
-                              'share_of_batch64': n8 * lut_times[0]
-                              / graph_lat[f'{name}_batch64_ms']}
-    # where a PQ search's device time goes, by operator
-    run = gidx['pq_rerank100'].device_searcher(limit=10)
-    run(gq_t)
-    torch.cuda.synchronize()
+            pq_launches[name] = {k: v.launches for k, v in kernels.items() if v.launches}
+    # beam_pq on this graph, as the PQ searches call it (entry: the medoid,
+    # ef 128, B 8, 32 iterations at most): held to the eager loop with the
+    # plain scorer, then timed at Q = 64 and 1 beside that loop; its bound
+    # counts the tables, and per iteration each query ran B*R code rows and
+    # B adjacency rows, with B*R*M table lookups
+    sv = gidx['pq_rerank0']._sync_device()
+    dt_g = gpq.dist_mat(gq_t).to(dev).float().contiguous()
+    ent_g = torch.full((nq, 1), sv.medoid, dtype=torch.int32, device=dev)
+    iters_g = bm._resolve_iters(None, 128, 8)
+
+    def graph_beam(nq_):
+        return bm.beam_pq_kernel(sv.adj, ent_g[:nq_], sv.codes, dt_g[:nq_].contiguous(),
+                                 128, 128, 8, iters_g)
+
+    def graph_beam_plain(nq_):
+        dt_ = dt_g[:nq_].contiguous()
+        return bm._beam_loop(sv.adj, ent_g[:nq_], 128, 8, iters_g, 128,
+                             lambda c: ad._lut_pq_scores_ref(c, sv.codes, dt_))
+
+    gb_d, gb_ids, gb_its = graph_beam(nq)
+    if not all(map(torch.equal, (gb_d, gb_ids), graph_beam_plain(nq))):
+        fail('beam_pq on the graph: ids or distances differ from the eager loop')
+    checks_graph = [f'beam_pq on the 131,072-row graph q={nq}: ids and distances bit-equal '
+                    'to the eager loop']
+    gm = sv.codes.shape[1]
+    rows = float(gb_its.sum()) * 8 * 32
+    times['beam_pq'] = (cuda_ms(lambda: graph_beam(nq)), cuda_ms(lambda: graph_beam_plain(nq), 5))
+    bounds['beam_pq'] = bound(nq * gm * 256 * 4 + rows * (gm + 4) + nq * 4 + nq * 128 * 8,
+                              rows * gm, FP32_OPS_PER_S, rows * gm)
+    beam_q1_ms = cuda_ms(lambda: graph_beam(1))
+    beam_q1_plain_ms = cuda_ms(lambda: graph_beam_plain(1), 5)
+    del dt_g, gb_d, gb_ids
+    # where a PQ search's device time goes, by operator, at batch 64 and 1
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    try:  # a measurement aid: a profiler that cannot trace fails no check
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            run(gq_t)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        ka = prof.key_averages()
-        kern = [e for e in ka if e.self_device_time_total > 0]
-        ops = sorted((e for e in ka if e.key.startswith('aten::') and e.device_time_total > 0),
-                     key=lambda e: -e.device_time_total)
-        busy = sum(e.self_device_time_total for e in kern) / 1e3
-        graph_profile = {
-            'wall_ms_profiled': wall_ms, 'device_busy_ms': busy,
-            'device_idle_share': 1.0 - busy / wall_ms,
-            'kernel_launches': sum(e.count for e in kern),
-            'lut_pq_ms': sum(e.self_device_time_total for e in kern if 'lut_pq' in e.key) / 1e3,
-            'top_aten_ops_device_ms': [(e.key, e.count, e.device_time_total / 1e3)
-                                       for e in ops[:10]]}
-    except Exception as e:  # noqa: BLE001
-        graph_profile = {'error': repr(e)}
+
+    def profile(run, qv):
+        run(qv)
+        torch.cuda.synchronize()
+        try:  # a measurement aid: a profiler that cannot trace fails no check
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                run(qv)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            ka = prof.key_averages()
+            kern = [e for e in ka if e.self_device_time_total > 0]
+            ops = sorted((e for e in ka if e.key.startswith('aten::')
+                          and e.device_time_total > 0), key=lambda e: -e.device_time_total)
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            return {
+                'wall_ms_profiled': wall_ms, 'device_busy_ms': busy,
+                'device_idle_share': 1.0 - busy / wall_ms,
+                'kernel_launches': sum(e.count for e in kern),
+                'beam_pq_ms': sum(e.self_device_time_total for e in kern
+                                  if 'beam_pq' in e.key) / 1e3,
+                'top_aten_ops_device_ms': [(e.key, e.count, e.device_time_total / 1e3)
+                                           for e in ops[:8]]}
+        except Exception as e:  # noqa: BLE001
+            return {'error': repr(e)}
+
+    graph_profile = {}
+    for name in ('pq_rerank0', 'pq_rerank100'):
+        run = gidx[name].device_searcher(limit=10)
+        graph_profile[f'{name}_batch64'] = profile(run, gq_t)
+        graph_profile[f'{name}_batch1'] = profile(run, gq_t[:1])
     emit({'phase': 'graph', 'n': gn, 'dim': d2, 'max_degree': 32, 'l_build': 64,
           'ef': 128, 'beam_width': 8, 'entry_samples': 4096, 'entry_width': 8,
           'build_s': graph_build_s, 'build_threads': os.cpu_count(),
@@ -1399,9 +1544,16 @@ def main() -> int:
           'latency_ms': graph_lat,
           'qps_batch64': {k[:-len('_batch64_ms')]: nq / v * 1e3
                           for k, v in graph_lat.items() if k.endswith('_batch64_ms')},
-          'k8_share': k8_share, 'profile_pq_rerank100_batch64': graph_profile,
+          'pq_search_kernel_launches': pq_launches, 'profile_pq_search': graph_profile,
+          'beam_pq_checks': checks_graph,
+          'beam_pq_ms': {'q64': times['beam_pq'][0], 'q1': beam_q1_ms},
+          'beam_pq_eager_plain_ms': {'q64': times['beam_pq'][1], 'q1': beam_q1_plain_ms},
+          'beam_pq_iterations_q64': {'max': int(gb_its.max()),
+                                     'mean': float(gb_its.float().mean())},
+          'beam_pq_dependent_global_reads': 1 + 2 * int(gb_its.max()),
+          'beam_pq_bound_ms_q64': bounds['beam_pq'][0],
           'launches': graph_counts})
-    del gidx, gbase, gstate, gres, gxd, gsq, run
+    del gidx, gbase, gstate, gres, gxd, gsq, run, sv, ent_g, gb_its
     torch.cuda.empty_cache()
 
     # ---------------- 12. the facade with the graph index ----------------
@@ -1469,7 +1621,7 @@ def main() -> int:
     facade_graph = {}
     for kind, kw, expected in (('vectors', {}, []),
                                ('pq_rerank0', dict(n_subvectors=64, rerank=0),
-                                ['lut_pq_scores'])):
+                                ['beam_pq'])):
         out, counts = drive(f'facade_graph {kind}', expected, lambda: facade_graph_path(
             kind, ROOT / 'build' / f'chip_smoke_graph_{kind}', kw))
         facade_graph[kind] = dict(out, launches=counts)
@@ -1484,7 +1636,8 @@ def main() -> int:
            'lane8_merge': 'annlite_torch/csrc/fused_scan.cu',
            'gather_rerank': 'annlite_torch/csrc/gather.cu',
            'lut_pq_scores': 'annlite_torch/csrc/lut_pq.cu',
-           'adc_scores_i8': 'annlite_torch/csrc/adc_i8.cu'}
+           'adc_scores_i8': 'annlite_torch/csrc/adc_i8.cu',
+           'beam_pq': 'annlite_torch/csrc/beam_pq.cu'}
     replaces = {'block_top2': 'annlite_tpu/ops/fused_scan.py:99',
                 'lane8_merge': 'annlite_tpu/ops/fused_scan.py:121',
                 # the int4 and bf16 branches of K1/K2's block scoring
@@ -1496,7 +1649,9 @@ def main() -> int:
                 'ivf_scores': 'annlite_tpu/ops/ivf.py:31',
                 'ivf_block_top2': 'annlite_tpu/ops/ivf.py:78',
                 'lut_pq_scores': 'annlite_tpu/ops/adc.py:283',
-                'adc_scores_i8': 'annlite_tpu/ops/adc_i8.py:56'}
+                'adc_scores_i8': 'annlite_tpu/ops/adc_i8.py:56',
+                # K8 with the loop around it (annlite_tpu/ops/beam.py:149)
+                'beam_pq': 'annlite_tpu/ops/adc.py:283'}
     emit({'phase': 'bounds', 'bound_of': {k: bounds[k][2] for k in kernels}})
     emit({'kernels': [
         {'name': k, 'route': 'cuda',
