@@ -12,6 +12,8 @@
 //   * annlite_tpu/ops/ivf.py:78  _ivf_kernel8  (K6) -> EPI kIvfTop2, then
 //     lane8_merge: K7's scores plus the slot-mask bias and BIG for pad
 //     selections, bucketed top-2 with provenance j * BS + slot.
+// K6 and K7 run here only where ops/ivf.py ivf_plan gives them the core;
+// csrc/ivf.cu has their bodies for few queries over few blocks.
 // The TPU kernels turn the lookup into a one-hot matrix product with a bf16
 // table, a device for the TPU's matrix unit.  Here the lookup stays a lookup
 // into float32 tables in shared memory; the four epilogues share one core.
@@ -74,18 +76,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookup.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;          // row r of a row block is in lane r % 128
 constexpr int kLpt = 4;              // lanes per thread: one wide code load
 constexpr int kG = 4;                // groups per pass: kG * 4 * 2 accumulators
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 232448;     // 227 KB: a block's shared memory limit
 constexpr int kMaxBuf = 4;           // ring buffers
 constexpr int kBarBytes = 64;        // after the ring: kMaxBuf mbarriers and counters
-constexpr float kBig = 3.4e38f;      // BIG of the Python side, in float32
 
 enum Epi { kScores = 0, kBlockTop2 = 1, kIvfScores = 2, kIvfTop2 = 3 };
 
@@ -120,35 +121,6 @@ struct Tile {
 
 int threads_per_block(int qt) { return 32 * (qt == 1 ? 1 : qt / 2); }
 
-// Four neighbouring codes of one subspace in one load.
-template <typename CodeT>
-struct Codes4;
-
-template <>
-struct Codes4<uint8_t> {
-  using Word = uint32_t;
-  static __device__ __forceinline__ Word load(const uint8_t* p) {
-    return __ldg(reinterpret_cast<const uint32_t*>(p));
-  }
-  static __device__ __forceinline__ Word zero() { return 0u; }
-  // code j of the word, by one byte permute
-  static __device__ __forceinline__ uint32_t at(Word w, int j) {
-    return __byte_perm(w, 0u, 0x4440u + j);
-  }
-};
-
-template <>
-struct Codes4<uint16_t> {
-  using Word = uint2;
-  static __device__ __forceinline__ Word load(const uint16_t* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  static __device__ __forceinline__ Word zero() { return make_uint2(0u, 0u); }
-  static __device__ __forceinline__ uint32_t at(Word w, int j) {
-    return __byte_perm(j < 2 ? w.x : w.y, 0u, (j & 1) ? 0x4432u : 0x4410u);
-  }
-};
-
 // acc[p] += the QPT floats at shared address `addr`, in order.  Volatile: the
 // reads stay after the mbarrier wait that makes the chunk visible.
 template <int QPT>
@@ -162,18 +134,6 @@ __device__ __forceinline__ void lookup_add(uint32_t addr, float (&acc)[QPT]) {
     float x;
     asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
     acc[0] = __fadd_rn(acc[0], x);
-  }
-}
-
-__device__ __forceinline__ void top2_insert(float v, uint32_t g, float& mn1, float& mn2,
-                                            uint32_t& gg) {
-  if (v < mn1) {  // g1 moves to g2
-    mn2 = mn1;
-    mn1 = v;
-    gg = (gg << 16) | g;
-  } else if (v < mn2) {
-    mn2 = v;
-    gg = (gg & 0xFFFFu) | (g << 16);
   }
 }
 

@@ -46,6 +46,11 @@ SIGNATURES = {
         'annlite_ivf_block_top2': [_P] * 9 + [_I] * 6 + [_P] * 2,
         'annlite_adc_info': [_I] * 3 + [_P],
     },
+    'ivf': {
+        'annlite_ivf_rows': [_P] * 4 + [_I] * 8 + [_P],
+        'annlite_ivf_top2': [_P] * 9 + [_I] * 9 + [_P],
+        'annlite_ivf_info': [_I] * 4 + [_P],
+    },
     'lut_pq': {
         'annlite_lut_pq_scores': [_P] * 4 + [_I] * 6 + [_P],
     },

@@ -11,7 +11,8 @@ Kernels (``csrc/adc.cu``): ``adc_scores`` (K5, the full ``[Q, N]`` scores)
 and ``adc_block_top2`` (K4's block pass: per block of ``block_n`` rows the
 bucketed top-2 of `ops/fused_scan.py`), which ``lane8_merge`` finishes into a
 running top-8 per lane class.  Both run on one lookup core with the IVF
-kernels of `ops/ivf.py`; its launch geometry (query tile, row blocks per CTA,
+kernels of `ops/ivf.py` where its plan gives them the core; its launch
+geometry (query tile, row blocks per CTA,
 group splits, table chunks) is chosen here, :func:`adc_plan`.  Beside each
 kernel sits its plain PyTorch version (``_adc_scores_ref``,
 ``_adc_block_top2_ref``), which sums over m in order 0..M-1 in float32 as the
@@ -260,8 +261,9 @@ _EPILOGUES = {'adc_scores': 0, 'adc_block_top2': 1, 'ivf_scores': 2, 'ivf_block_
 
 def adc_info(entry: str, nq: int, n_rb: int, bn: int, m: int, k: int,
              code_bytes: int = 1) -> dict:
-    """How ``entry`` ('adc_scores', 'adc_block_top2', 'ivf_scores',
-    'ivf_block_top2') runs at these shapes on the card: its plan, the
+    """How ``entry`` ('adc_scores', 'adc_block_top2', and 'ivf_scores' or
+    'ivf_block_top2' where `ops/ivf.py` ``ivf_plan`` gives them the core)
+    runs at these shapes on the card: its plan, the
     kernels one call launches (the table interleave unless the core reads
     the table in place, the core, and the splits' merge of a top-2 entry),
     and the registers and spilled bytes per thread of its instantiation.

@@ -6,25 +6,30 @@ cells: their ids arrive as a device array (``-1`` pads a selection) and each
 CTA of the kernel reads the blocks it is given.  Candidates are (selection,
 slot) pairs mapped back to global rows through the store's row map.
 
-Kernels (``csrc/adc.cu``): ``ivf_scores`` (K7: ``[S, Q, BS]`` scores, the
-slot mask applied outside) and ``ivf_block_top2`` (K6's block pass: the slot
-mask and pad selections as BIG biases, bucketed top-2 with provenance
+Kernels (``csrc/ivf.cu``, planned by :func:`ivf_plan`): ``ivf_scores`` (K7:
+``[S, Q, BS]`` scores, the slot mask applied outside), for one or two
+queries a latency-bound body of two slots a thread, above that the lookup
+core of `ops/adc.py`; and ``ivf_block_top2`` (K6's block pass: the slot mask
+and pad selections as BIG biases, bucketed top-2 with provenance
 ``j * BS + slot``), which ``lane8_merge`` finishes into a running top-8 per
-lane class; both run on the lookup core of `ops/adc.py`, planned by its
-``adc_plan``.  Beside each sits its plain PyTorch version
-(``_ivf_scores_ref``, ``_ivf_block_top2_ref``), bit-equal to it.  The
-wrappers take the plain version for CPU tensors only; for CUDA tensors they
-launch the kernels or raise.
+lane class: one launch over one CTA per SM, or the lookup core where the
+plan expects that faster (many selections, whose grid fills the card).  Beside each sits its plain
+PyTorch version (``_ivf_scores_ref``, ``_ivf_block_top2_ref``), bit-equal to
+it.  The wrappers take the plain version for CPU tensors only; for CUDA
+tensors they launch the kernels or raise.
 """
-from typing import Optional, Tuple, Union
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from . import BIG, _ext
-from .adc import (MAX_ADC_CLUSTERS, _code_bytes, _plan_args, _split_parts, _table_scratch,
-                  adc_plan, adc_scores_ref, supports_adc)
+from .adc import (MAX_ADC_CLUSTERS, MAX_SMEM, TARGET_CTAS, AdcPlan, _code_bytes, _plan_args,
+                  _round_up, _split_parts, _table_scratch, adc_info, adc_plan, adc_scores_ref,
+                  supports_adc)
 from .fused_scan import _bucket_top2, _lane8_merge_ref, lane8_merge
 from .topk import topk
 
@@ -76,6 +81,176 @@ def _ivf_block_top2_ref(block_ids, dtable, codes_blocks, mask_blocks):
 
 
 # --------------------------------------------------------------------------
+# Launch plans
+# --------------------------------------------------------------------------
+
+# K7's own body (csrc/ivf.cu ivf_rows_kernel) takes at most this many
+# queries; above it the lookup core of csrc/adc.cu scores the blocks
+ROWS_MAX_QUERIES = 2
+ROWS_PER_CTA = 64          # one warp of two slots a thread
+ROWS_CHUNK_M = 64          # subspaces per table chunk when K7 stages its table
+ROWS_MAX_CHUNKS = 16       # the kernel's mbarriers
+# whether K7 stages its table in shared memory (else it reads it through
+# L1/L2); chosen by the card's times (PERF.md)
+ROWS_SMEM_TABLE = True
+# K6's own body (csrc/ivf.cu ivf_top2_kernel) against the lookup core:
+# milliseconds = fixed + per lookup, fitted to their times on an NVIDIA H100
+# 80GB HBM3 at 700 W (scripts/ivf_probe.py: Q 8 to 64 over 139 and 256
+# selections of 1,024 slots, M = 64, K = 256).  The core's lookups count
+# its padded query tiles over the share of its last wave's SMs it fills: its
+# tiles of 16 read the table with fewer bank conflicts than the own body's
+# tiles of 2, but few selections leave its grid short of the card.
+K6_OWN_MS = (0.0199, 4.71e-10)
+K6_CORE_MS = (0.0313, 2.93e-10)
+TOP2_THREADS = 512         # K6: 16 warps, a work unit each per round
+TOP2_WARPS = TOP2_THREADS // 32
+TOP2_MAX_TILE = 2          # queries per K6 work unit (one 8-byte table read)
+
+
+class IvfPlan(NamedTuple):
+    """Launch of an IVF kernel.  ``kernel``: ``'rows'`` (K7's body: ``grid``
+    CTAs of one warp, two slots a thread, all ``qt`` = Q queries),
+    ``'core'`` (the lookup core of `ops/adc.py` under ``core``), or
+    ``'top2'`` (K6: ``units`` = tiles x selections x groups work units of one
+    warp, query tiles of ``qt``, ``cpt`` CTAs a tile over equal ranges of its
+    units, ``grid`` = tiles x cpt).  ``smem_tab``: the table staged in shared
+    memory (K7 in chunks of ``mc`` subspaces), else read through L1/L2."""
+    kernel: str
+    qt: int
+    tiles: int
+    units: int
+    grid: int
+    threads: int
+    smem: int
+    smem_tab: bool
+    mc: int
+    cpt: int
+    core: Optional[AdcPlan]
+
+
+def _core_plan(nq: int, n_sel: int, bs: int, m: int, k: int) -> IvfPlan:
+    """The lookup core's launch (:func:`~.adc.adc_plan`) as an IVF plan."""
+    core = adc_plan(nq, n_sel, bs, m, k)
+    return IvfPlan('core', core.qt, core.tiles, 0, core.grid, core.threads, core.smem, True,
+                   core.mc, 0, core)
+
+
+def _rows_plan(nq: int, n_sel: int, bs: int, m: int, k: int,
+               smem_tab: bool = ROWS_SMEM_TABLE) -> IvfPlan:
+    """K7's own body: one CTA per 64 slots; the table staged in shared memory
+    (``smem_tab``) where it fits, in chunks of ``mc`` subspaces."""
+    tab = nq * m * k * 4 + ROWS_MAX_CHUNKS * 8  # the table, then its mbarriers
+    smem = smem_tab and k % 4 == 0 and tab <= MAX_SMEM
+    mc = max(ROWS_CHUNK_M, -(-m // ROWS_MAX_CHUNKS))
+    return IvfPlan('rows', nq, 1, 0, n_sel * (bs // ROWS_PER_CTA), 32, tab if smem else 0,
+                   smem, mc, 0, None)
+
+
+def _top2_plan(nq: int, n_sel: int, bs: int, m: int, k: int, ctas: int,
+               smem_tab: bool = True, qt: Optional[int] = None) -> IvfPlan:
+    """K6's own body: query tiles of ``qt`` (2, or 1 for one query),
+    ``ctas // tiles`` CTAs a tile (at least one, at most one per work unit),
+    so the grid is one CTA per SM up to a remainder; each tile's interleaved
+    table resident in shared memory (``smem_tab``) where it fits beside a
+    round's scores, else read through L2."""
+    qt = qt or min(nq, TOP2_MAX_TILE)
+    tiles = -(-nq // qt)
+    per_tile = n_sel * (bs // 128)
+    cpt = max(1, min(per_tile, ctas // tiles))
+    scores = TOP2_WARPS * qt * 128 * 4 + 16  # a round's scores, then the flags
+    tab = _round_up(m * k * qt, 4) * 4
+    smem = smem_tab and tab + scores <= MAX_SMEM
+    return IvfPlan('top2', qt, tiles, tiles * per_tile, tiles * cpt, TOP2_THREADS,
+                   (tab if smem else 0) + scores, smem, 0, cpt, None)
+
+
+@functools.lru_cache(maxsize=1024)
+def ivf_plan(entry: str, nq: int, n_sel: int, bs: int, m: int, k: int,
+             ctas: int = TARGET_CTAS) -> IvfPlan:
+    """The launch of ``entry`` ('ivf_scores' or 'ivf_block_top2') for ``nq``
+    queries over ``n_sel`` selected blocks of ``bs`` slots, ``m`` subspaces of
+    ``k`` codewords, on a card of ``ctas`` SMs.  K7 up to
+    :data:`ROWS_MAX_QUERIES` queries takes its own body, above them the
+    lookup core; K6 takes whichever of its own body and the core
+    :data:`K6_OWN_MS` and :data:`K6_CORE_MS` expect to be faster."""
+    if entry == 'ivf_scores':
+        if nq > ROWS_MAX_QUERIES:
+            return _core_plan(nq, n_sel, bs, m, k)
+        return _rows_plan(nq, n_sel, bs, m, k)
+    if entry != 'ivf_block_top2':
+        raise ValueError(f'ivf_plan: unknown entry {entry!r}')
+    own, core = _top2_plan(nq, n_sel, bs, m, k, ctas), _core_plan(nq, n_sel, bs, m, k)
+    lookups = n_sel * bs * m
+    waves = -(-core.grid // ctas)
+    own_ms = K6_OWN_MS[0] + K6_OWN_MS[1] * nq * lookups
+    core_ms = K6_CORE_MS[0] + K6_CORE_MS[1] * core.tiles * core.qt * lookups * (
+        waves * ctas / core.grid)
+    return own if own_ms <= core_ms else core
+
+
+def _unit_lo(plan: IvfPlan, ci: int) -> int:
+    """The first work unit, within its query tile, of the tile's K6 CTA
+    ``ci`` (the kernel's ``unit_lo``)."""
+    return ci * (plan.units // plan.tiles) // plan.cpt
+
+
+def ivf_plan_ctas(plan: IvfPlan, nq: int, n_sel: int,
+                  bs: int) -> List[List[Tuple[int, range, range]]]:
+    """The cells each CTA of a 'rows' or 'top2' plan computes, in
+    ``blockIdx`` order: a list of ``(selection, slots, queries)``.  A K6 CTA
+    lists its work units (one group of 128 slots each) in the order it runs
+    them."""
+    if plan.kernel == 'rows':
+        per = bs // ROWS_PER_CTA
+        return [[(c // per, range(c % per * ROWS_PER_CTA, c % per * ROWS_PER_CTA + ROWS_PER_CTA),
+                  range(nq))] for c in range(plan.grid)]
+    groups = bs // 128
+    out = []
+    for c in range(plan.grid):
+        tile, ci = divmod(c, plan.cpt)
+        qs = range(tile * plan.qt, min(nq, tile * plan.qt + plan.qt))
+        out.append([(u // groups, range(u % groups * 128, u % groups * 128 + 128), qs)
+                    for u in range(_unit_lo(plan, ci), _unit_lo(plan, ci + 1))])
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# K6's counters per (card, stream): zero between calls (the kernel's last
+# CTA on a selection sets its counter back to 0)
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def ivf_info(entry: str, nq: int, n_sel: int, bs: int, m: int, k: int,
+             code_bytes: int = 1) -> dict:
+    """How ``entry`` ('ivf_scores', 'ivf_block_top2') runs at these shapes on
+    the card: its plan, the kernels one call launches, the grid, and the
+    registers and spilled bytes per thread of its instantiation.  Builds the
+    kernels; needs a card."""
+    plan = ivf_plan(entry, nq, n_sel, bs, m, k, _sm_count(torch.cuda.current_device()))
+    if plan.kernel == 'core':
+        return {'kernel': 'core', **adc_info(entry, nq, n_sel, bs, m, k, code_bytes)}
+    out = (ctypes.c_int * 2)()
+    _ext.check(_ext.library('ivf').annlite_ivf_info(
+        int(plan.kernel == 'top2'), code_bytes, plan.qt, int(plan.smem_tab), out), 'ivf_info')
+    info = plan._asdict()
+    del info['core']
+    return {**info, 'kernel_launches': 1, 'registers': out[0], 'spill_bytes': out[1]}
+
+
+# --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -95,21 +270,35 @@ def _check(what, block_ids, dtable, codes_blocks, *more):
     if q == 0 or block_ids.shape[0] == 0 or codes_blocks.data_ptr() % 8:
         raise ValueError(f'{what}: at least one query and one selection, and 8-byte '
                          'aligned codes (the kernel loads 4 slots at once), expected')
+    if block_ids.shape[0] * codes_blocks.shape[2] >= 2**31:
+        raise ValueError(f'{what}: selections x block size must stay below 2^31')
     return q, m, k, block_ids.shape[0], codes_blocks.shape[2], _code_bytes(codes_blocks)
 
 
-def ivf_scores(block_ids, dtable, codes_blocks):
-    """Launch ``ivf_scores`` (K7) -> float32 ``[S, Q, BS]``."""
+def _aligned(dtable: torch.Tensor) -> torch.Tensor:
+    """``dtable`` at a 16-byte address (the bulk copies' and float4 loads')."""
+    return dtable if dtable.data_ptr() % 16 == 0 else dtable.clone()
+
+
+def ivf_scores(block_ids, dtable, codes_blocks, plan: Optional[IvfPlan] = None):
+    """Launch ``ivf_scores`` (K7) -> float32 ``[S, Q, BS]``; ``plan``
+    overrides :func:`ivf_plan`'s (a measurement aid)."""
     q, m, k, s, bs, cb = _check('ivf_scores', block_ids, dtable, codes_blocks)
-    plan = adc_plan(q, s, bs, m, k)
+    plan = plan or ivf_plan('ivf_scores', q, s, bs, m, k)
     out = torch.empty((s, q, bs), dtype=torch.float32, device=dtable.device)
-    tab, tab_ptr = _table_scratch(plan, dtable)
-    lib = _ext.library('adc')
     with torch.cuda.device(dtable.device):
-        _ext.check(lib.annlite_ivf_scores(
-            block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
-            out.data_ptr(), tab_ptr, s, q, m, k, bs, cb, _plan_args(plan),
-            _ext.stream_ptr(dtable)), 'ivf_scores')
+        if plan.kernel == 'core':
+            tab, tab_ptr = _table_scratch(plan.core, dtable)
+            _ext.check(_ext.library('adc').annlite_ivf_scores(
+                block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
+                out.data_ptr(), tab_ptr, s, q, m, k, bs, cb, _plan_args(plan.core),
+                _ext.stream_ptr(dtable)), 'ivf_scores')
+        else:
+            dtable = _aligned(dtable)
+            _ext.check(_ext.library('ivf').annlite_ivf_rows(
+                block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
+                out.data_ptr(), s, q, m, k, bs, cb, int(plan.smem_tab), plan.mc,
+                _ext.stream_ptr(dtable)), 'ivf_scores')
     ivf_scores.launches += 1
     return out
 
@@ -117,25 +306,40 @@ def ivf_scores(block_ids, dtable, codes_blocks):
 ivf_scores.launches = 0
 
 
-def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks):
+def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
+                   plan: Optional[IvfPlan] = None):
     """Launch ``ivf_block_top2`` (K6's block pass) -> ``(s, r)`` as
-    :func:`_ivf_block_top2_ref`."""
+    :func:`_ivf_block_top2_ref`, in one launch; ``plan`` overrides
+    :func:`ivf_plan`'s (a measurement aid)."""
     q, m, k, s, bs, cb = _check('ivf_block_top2', block_ids, dtable, codes_blocks,
                                 mask_blocks)
     if mask_blocks.dtype != torch.int8 or mask_blocks.shape != (codes_blocks.shape[0], bs):
         raise ValueError('ivf_block_top2: unsupported mask')
-    plan = adc_plan(q, s, bs, m, k)
-    so = torch.empty((q, s * 256), dtype=torch.float32, device=dtable.device)
-    ro = torch.empty((q, s * 256), dtype=torch.int32, device=dtable.device)
-    ps, pg, parts = _split_parts(plan, q, s * 256, dtable.device)
-    tab, tab_ptr = _table_scratch(plan, dtable)
-    lib = _ext.library('adc')
-    with torch.cuda.device(dtable.device):
-        _ext.check(lib.annlite_ivf_block_top2(
+    dev = dtable.device
+    plan = plan or ivf_plan('ivf_block_top2', q, s, bs, m, k, _sm_count(dev.index))
+    so = torch.empty((q, s * 256), dtype=torch.float32, device=dev)
+    ro = torch.empty((q, s * 256), dtype=torch.int32, device=dev)
+    if plan.kernel == 'core':
+        ps, pg, parts = _split_parts(plan.core, q, s * 256, dev)
+        tab, tab_ptr = _table_scratch(plan.core, dtable)
+        with torch.cuda.device(dev):
+            _ext.check(_ext.library('adc').annlite_ivf_block_top2(
+                block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
+                mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), *parts, tab_ptr,
+                s, q, m, k, bs, cb, _plan_args(plan.core), _ext.stream_ptr(dtable)),
+                'ivf_block_top2')
+        ivf_block_top2.launches += 1
+        return so, ro
+    part_s = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.float32, device=dev)
+    part_g = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.int32, device=dev)
+    dtable = _aligned(dtable)
+    with torch.cuda.device(dev):
+        counters = _counters(dev, plan.tiles * s)
+        _ext.check(_ext.library('ivf').annlite_ivf_top2(
             block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
-            mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), *parts, tab_ptr,
-            s, q, m, k, bs, cb, _plan_args(plan), _ext.stream_ptr(dtable)),
-            'ivf_block_top2')
+            mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), part_s.data_ptr(),
+            part_g.data_ptr(), counters.data_ptr(), s, q, m, k, bs, cb, plan.qt,
+            int(plan.smem_tab), plan.cpt, _ext.stream_ptr(dtable)), 'ivf_block_top2')
     ivf_block_top2.launches += 1
     return so, ro
 
@@ -196,10 +400,10 @@ def ivf_scan_topk(
         scores = _ivf_scan_ref(block_ids, dtable, codes_blocks, mask_blocks)
     else:
         raw = ivf_scores(block_ids, dtable.float().contiguous(), codes_blocks.contiguous())
-        big = torch.tensor(BIG, dtype=torch.float32, device=raw.device)
-        # the slot mask applied outside the kernel, as the JAX package does
-        scores = torch.where(_ivf_keep(block_ids, mask_blocks)[:, None], raw,
-                             big).transpose(0, 1)
+        # the slot mask applied outside the kernel, as the JAX package does; a
+        # scalar fill, so the host queues the top-k without waiting for K7
+        scores = raw.masked_fill(~_ivf_keep(block_ids, mask_blocks)[:, None],
+                                 BIG).transpose(0, 1)
     q = scores.shape[0]
     d, pos = topk(scores.reshape(q, n_sel * bs), min(k, n_sel * bs))
     sel_block = safe[pos // bs]

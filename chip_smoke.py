@@ -10,7 +10,9 @@ line:
 1. ``build``: build time, the card's name and ``nvidia-smi``'s name and power
    limit;
 2. ``kernels_vs_plain``: every kernel against its plain PyTorch version on the
-   card at the main paths' shapes, and CUDA-event times.  The scan kernels
+   card at the main paths' shapes, and CUDA-event times (L2 flushed, the
+   start event behind a device spin that outlasts the host's enqueue, so
+   a window holds device time only).  The scan kernels
    at D = 768 (N = 16384 and 2^20, 1, 64 and 100 queries; at 2^20 also 65
    and 128, the query tiles' edges) and at the facade's D = 128 (N = 131072,
    8 and 100 queries); the ADC kernels at
@@ -18,9 +20,14 @@ line:
    and unmasked, at the lookup core's query-tile edges (15, 16, 17, 33
    queries), at the facade's 131,072 rows, K5 at N = 12,293, once at
    K = 1024 with u16 codes (the m-tiled table), and the IVF kernels on 1024
-   blocks of 1024 slots with probe sets of 1, 8 and 32 cells padded with -1
-   (the core's plan, kernels per call, registers and spills printed under
-   ``adc_geometry``); ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
+   blocks of 1024 slots with probe sets of 1, 8 and 32 cells padded with -1,
+   then at their plans' edges: S in {1, 2, 15, 16, 17, 139, 140, 300}, Q in
+   {1, 2, 7, 8, 9, 16, 17, 33}, u8 codes at K = 256 and u16 at K = 1024,
+   ties (repeated code columns and blocks, a table of three values), masked
+   slots and a -1 pad, K6 in both its bodies (the core's plan, kernels per
+   call, registers and
+   spills printed under ``adc_geometry``; the IVF kernels' in the ``ivf_pq``
+   phase); ``lut_pq_scores`` (K8) at N = 131,072, Q = 64
    and 1, C = 256 and 512, M = 64/K = 256 u8 and K = 1024 u16 at M = 16 and
    64 (m-tiled), with ids -1, N and NO_ID; ``beam_pq`` (K8 with its loop)
    against the eager loop with the plain scorer over the whole list, ids and
@@ -63,7 +70,11 @@ line:
    K4 and K5 on the trained codes, checked and timed;
 9. ``ivf_pq``: the same corpus in 1024 VQ cells fitted on the card,
    ``IVFPQIndex(rerank=100)`` at batch 8 / n_probe 8 (recall@10 >= 0.98)
-   and batch 1 / n_probe 1;
+   and batch 1 / n_probe 1; K6 and K7 at these shapes, checked and timed,
+   their plans, launches per call, grids, registers and spills
+   (``adc_geometry``), K7's latency floor (an empty launch's time and two
+   dependent DRAM reads), and K6's, K7's and ``embedding_bag``'s times
+   under the earlier timer as well;
 10. ``facade_pq``: ``AnnLite`` over phase 7's docs with ``n_subvectors=64``,
    then with ``n_cells=64`` as well: train, index, self-hits, a filtered
    search, updates and deletes, encode/decode, dump and reopen;
@@ -118,6 +129,9 @@ BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 
 SEED = 0
+# the device spin before a timed run's start event: longer than any kernel
+# wrapper's host work (~10-100 us; a plain version's many ops may outlast it)
+SPIN_US = 200
 T0 = time.perf_counter()
 
 
@@ -233,16 +247,23 @@ def main() -> int:
           'smem_bytes_per_s_for_lookup_floor': SMEM_BYTES_PER_S[0]})
 
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    spin_cycles = int(SPIN_US * sm_mhz)
 
-    def cuda_ms(fn, reps: int = 20):
+    def cuda_ms(fn, reps: int = 20, spin: bool = True):
         """Median CUDA-event time of ``fn`` over ``reps`` runs after two
         warm-up runs, with L2 flushed before each run (a caller finds the
-        corpus and the shortlist rows cold)."""
+        corpus and the shortlist rows cold).  The start event is recorded
+        behind a device spin of ``SPIN_US`` after the flush, so the host has
+        queued ``fn``'s launches before it fires and the window holds device
+        time only; ``spin=False`` is the earlier timer, whose window also
+        held any host time of ``fn`` beyond the flush's."""
         for _ in range(2):
             fn()
         times = []
         for _ in range(reps):
             flush_buf.zero_()
+            if spin:
+                torch.cuda._sleep(spin_cycles)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -647,7 +668,7 @@ def main() -> int:
     cb_ivf = cb_ivf.to(torch.uint8)
     mb_ivf = (torch.rand((nblk, 1024), device=dev, generator=g) < 0.9).to(torch.int8)
 
-    def check_ivf(tag, ids, dt, cb, mb):
+    def check_ivf(tag, ids, dt, cb, mb, record=True):
         tag = f'{tag} S={ids.shape[0]} q={dt.shape[0]}'
         out = iv.ivf_scores(ids, dt, cb)
         ref = iv._ivf_scores_ref(ids, dt, cb)
@@ -663,8 +684,9 @@ def main() -> int:
         if ids.shape[0] >= 4 and not all(map(
                 torch.equal, fs.lane8_merge(s6, r6), fs._lane8_merge_ref(s6r, r6r))):
             fail(f'lane8_merge {tag}: rows or scores differ on IVF candidates')
-        checks.append(f'ivf_scores, ivf_block_top2+lane8_merge {tag}: rows equal, '
-                      'scores bit-equal')
+        if record:
+            checks.append(f'ivf_scores, ivf_block_top2+lane8_merge {tag}: rows equal, '
+                          'scores bit-equal')
 
     for ncell in (1, 8, 32):
         ids = torch.randperm(nblk, device=dev, generator=g)[:ncell]
@@ -675,7 +697,43 @@ def main() -> int:
         for nq_ in (1, 8, 64):
             check_ivf(f'1024 blocks x 1024 probe={ncell}', ids,
                       dt_all[:nq_].contiguous(), cb_ivf, mb_ivf)
-    del cb_ivf, mb_ivf
+    # the IVF plans' edges: K7's body (S < 16, Q <= 2) and the core above it,
+    # K6's query tiles and CTA ranges; u8 codes at K = 256 and u16 at
+    # K = 1024 (K6 then reads its tables through L2); group 1 of every block
+    # repeats group 0 (codes and slot mask) and blocks 0 and 1 are equal, the
+    # last selection is a -1 pad, and at K = 256 also a table of three values
+    # (ties everywhere)
+    cb_ivf[:, :, 128:256] = cb_ivf[:, :, :128]
+    mb_ivf[:, 128:256] = mb_ivf[:, :128]
+    cb16 = torch.randint(0, 1024, (nblk, pm, 1024), device=dev, generator=g, dtype=torch.int32)
+    cb16[1] = cb16[0]
+    cb16[:, :, 128:256] = cb16[:, :, :128]
+    cb16 = cb16.to(torch.uint16)
+    ivf_edges = 0
+    for n_sel in (1, 2, 15, 16, 17, 139, 140, 300):
+        ids = torch.randperm(nblk, device=dev, generator=g)[:n_sel].to(torch.int32)
+        if n_sel > 2:
+            ids[:2] = torch.tensor([0, 1], device=dev)
+            ids[-1] = -1
+        for nq_ in (1, 2, 7, 8, 9, 16, 17, 33):
+            for kk, cbk, ties in ((pk, cb_ivf, False), (pk, cb_ivf, True), (1024, cb16, False)):
+                dt_e = (torch.randint(0, 3, (nq_, pm, kk), device=dev, generator=g).float()
+                        if ties else torch.rand((nq_, pm, kk), device=dev, generator=g) * 10)
+                tag = f'1024 blocks x 1024 k={kk}{" ties" if ties else ""}'
+                check_ivf(tag, ids, dt_e, cbk, mb_ivf, record=False)
+                # K6's other body at this shape (its plan picks one by time)
+                picked = iv.ivf_plan('ivf_block_top2', nq_, n_sel, 1024, pm, kk, n_sms)
+                other = (iv._core_plan(nq_, n_sel, 1024, pm, kk) if picked.kernel == 'top2'
+                         else iv._top2_plan(nq_, n_sel, 1024, pm, kk, n_sms))
+                if not all(map(torch.equal, iv.ivf_block_top2(ids, dt_e, cbk, mb_ivf, other),
+                               iv._ivf_block_top2_ref(ids, dt_e, cbk, mb_ivf))):
+                    fail(f'ivf_block_top2 {tag} S={n_sel} q={nq_} ({other.kernel}): rows or '
+                         'scores differ from the plain version')
+                ivf_edges += 1
+    checks.append(f'ivf_scores, ivf_block_top2 (both bodies) + lane8_merge at {ivf_edges} '
+                  'plan edges (S 1-300, Q 1-33, k 256 u8 and 1024 u16, ties): rows equal, '
+                  'scores bit-equal')
+    del cb_ivf, mb_ivf, cb16
 
     # K8 at the graph path's shapes: N = 131,072 rows of row-major codes, a
     # beam of C = B*R = 256 (B 8, R 32) and 512 (B 16) candidates, Q = 64
@@ -1270,6 +1328,15 @@ def main() -> int:
     k6_ms = cuda_ms(lambda: fs.lane8_merge(*iv.ivf_block_top2(s8_ids, dt8, cb, mb)))
     times['ivf_scores'] = (cuda_ms(lambda: iv.ivf_scores(s1_ids, dt1, cb)),
                            cuda_ms(lambda: iv._ivf_scores_ref(s1_ids, dt1, cb), 5))
+    # K7's latency floor: one launch (an empty one's event time) plus two
+    # dependent reads from DRAM (the codes, then the table entries they name)
+    empty = torch.zeros(1, device=dev)
+    k7_floor = {'empty_launch_ms': cuda_ms(lambda: empty.zero_()), 'dependent_dram_reads': 2}
+    # the earlier timer (no spin before the start event), for the readings
+    # taken with it
+    old_timer_ms = {
+        'ivf_block_top2': cuda_ms(lambda: iv.ivf_block_top2(s8_ids, dt8, cb, mb), spin=False),
+        'ivf_scores': cuda_ms(lambda: iv.ivf_scores(s1_ids, dt1, cb), spin=False)}
     n8, n1 = len(sel8[0]) * 1024, len(sel1) * 1024
     bounds['ivf_block_top2'] = bound(n8 * 64 + 8 * 64 * 256 * 4 + len(sel8[0]) * 4 + n8
                                      + 8 * len(sel8[0]) * 256 * 8, 8.0 * n8 * 64,
@@ -1287,11 +1354,13 @@ def main() -> int:
         fail('embedding_bag does not compute the IVF scores')
     library_ms['ivf_scores'] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
         bag7_idx, bag7_w, mode='sum'))
+    old_timer_ms['ivf_scores_embedding_bag'] = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        bag7_idx, bag7_w, mode='sum'), spin=False)
     del bag7_idx, bag7_w, bag7
     ivf_geometry = {
-        f'ivf_block_top2 q8 S={len(sel8[0])}': ad.adc_info('ivf_block_top2', 8, len(sel8[0]),
+        f'ivf_block_top2 q8 S={len(sel8[0])}': iv.ivf_info('ivf_block_top2', 8, len(sel8[0]),
                                                             1024, 64, 256),
-        f'ivf_scores q1 S={len(sel1)}': ad.adc_info('ivf_scores', 1, len(sel1), 1024, 64, 256)}
+        f'ivf_scores q1 S={len(sel1)}': iv.ivf_info('ivf_scores', 1, len(sel1), 1024, 64, 256)}
     emit({'phase': 'ivf_pq', 'n': n2, 'cells': 1024, 'block': 1024,
           'build_s': ivf_build_s, 'recall_at_10_vs_fp32_probe8': ivf_recall,
           'scanned_fraction_probe8': {'mean': float(np.mean([len(s) for s in sel8])) * 1024 / n2,
@@ -1300,7 +1369,10 @@ def main() -> int:
           'latency_ms': ivf_lat, 'qps_probe8_batch8': 8 / ivf_lat['probe8_batch8_ms'] * 1e3,
           'k6_ivf_block_top2_plus_lane8_merge_ms': k6_ms,
           'k6_lane8_merge_bound_ms': merge_bound(8, len(sel8[0])),
-          'adc_geometry': ivf_geometry,
+          'k6_ms': times['ivf_block_top2'][0], 'k6_bound_ms': bounds['ivf_block_top2'][0],
+          'k7_ms': times['ivf_scores'][0], 'k7_embedding_bag_ms': library_ms['ivf_scores'],
+          'k7_bound_ms': bounds['ivf_scores'][0], 'k7_latency_floor': k7_floor,
+          'old_timer_ms': old_timer_ms, 'adc_geometry': ivf_geometry,
           'launches': ivf_counts, 'kernel_shapes': {
               'ivf_block_top2': f'Q=8 S={len(sel8[0])}', 'ivf_scores': f'Q=1 S={len(sel1)}'}})
     del ivf, cb, mb, xs_dev, xs_sq, xs, codes
@@ -1631,6 +1703,8 @@ def main() -> int:
 
     # ---------------- result ----------------
     src = {'block_top2': 'annlite_torch/csrc/fused_scan.cu',
+           'ivf_scores': 'annlite_torch/csrc/ivf.cu',
+           'ivf_block_top2': 'annlite_torch/csrc/ivf.cu',
            'block_top2_int4': 'annlite_torch/csrc/fused_scan.cu',
            'block_top2_bf16': 'annlite_torch/csrc/fused_scan.cu',
            'lane8_merge': 'annlite_torch/csrc/fused_scan.cu',

@@ -10,9 +10,10 @@
    returns what the kernel returns, and prints microseconds per iteration and
    phase (at the card's maximum SM clock) on a random degree-32 graph of
    131,072 rows, PQ64 u8 codes, ef 128, B 8, at Q = 64 and 1.
-2. ``lane8_merge``: CUDA-event times (L2 flushed before each run) of the
-   kernel over 128 and 256 blocks at Q = 64 and 1 with 1, 2, 4, 8 and 16
-   block ranges per lane class, each checked against the plain version.
+2. ``lane8_merge``: CUDA-event times (L2 flushed before each run, the host
+   out of the window) of the kernel over 128 and 256 blocks at Q = 64 and 1
+   with 1, 2, 4, 8 and 16 block ranges per lane class, each checked against
+   the plain version.
 
 Prints one JSON line per measurement and the card's name and power limit.
 Needs one card; a measurement aid, not part of the library.
@@ -25,6 +26,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+SPIN_US = 200  # device spin before a timed run's start event (as chip_smoke.py)
 PHASES = ['stage', 'seed', 'frontier', 'expand', 'keys', 'sort', 'writeback']
 
 
@@ -92,11 +94,14 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
 
     def cuda_ms(fn, reps=20):
+        """chip_smoke.py's timer: L2 flushed, the start event behind a device
+        spin that outlasts the host's enqueue of ``fn``."""
         for _ in range(2):
             fn()
         times = []
         for _ in range(reps):
             flush.zero_()
+            torch.cuda._sleep(int(SPIN_US * mhz))
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()

@@ -234,10 +234,203 @@ def test_deep_select_candidates_equal_oracle_query_tiles(nq):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize('n_sel', [8, 16, 40, 118, 139])
+IVF_QUERIES = sorted(set(range(1, 34)) | set(TILE_EDGES))
+
+
+def _check_ivf_plan_covers(n_sel, bs, m, k, queries):
+    """For every batch in ``queries``: K7's plan and K6's own body
+    (`ops/ivf.py` ``ivf_plan``, ``_top2_plan``) compute each (selection,
+    group, lane, query) cell exactly once, within the kernels' limits; K6's
+    grid fills the card, and its plan is its own body or the lookup core."""
+    groups = bs // 128
+    for nq in queries:
+        k6 = tivf.ivf_plan('ivf_block_top2', nq, n_sel, bs, m, k)
+        own = tivf._top2_plan(nq, n_sel, bs, m, k, tadc.TARGET_CTAS)
+        assert k6 == own or (k6.kernel == 'core' and k6.core == tadc.adc_plan(nq, n_sel, bs, m, k))
+        for plan in (tivf.ivf_plan('ivf_scores', nq, n_sel, bs, m, k), own):
+            assert plan.smem <= tadc.MAX_SMEM
+            if plan.kernel == 'core':  # held by _check_plan_covers
+                assert nq > tivf.ROWS_MAX_QUERIES
+                continue
+            ctas = tivf.ivf_plan_ctas(plan, nq, n_sel, bs)
+            assert len(ctas) == plan.grid
+            seen = np.zeros((n_sel, groups, nq), np.int32)
+            if plan.kernel == 'rows':
+                assert nq <= tivf.ROWS_MAX_QUERIES and plan.threads * 2 == tivf.ROWS_PER_CTA
+                for (sel, slots, qs), in ctas:
+                    # 32 threads of 2 slots: a 64-slot half of one group
+                    assert len(slots) == tivf.ROWS_PER_CTA and slots.start % 64 == 0
+                    seen[sel, slots.start // 128, qs.start:qs.stop] += 1
+                seen //= 2  # two CTAs a group
+            else:
+                assert plan.threads == tivf.TOP2_THREADS and plan.qt == min(nq, 2)
+                assert plan.units == plan.tiles * n_sel * groups
+                # one CTA per SM up to a remainder (within 10% at Q <= 33), or
+                # one per unit where units are fewer
+                assert plan.grid == plan.tiles * plan.cpt <= max(tadc.TARGET_CTAS, plan.tiles)
+                if n_sel * groups >= tadc.TARGET_CTAS // plan.tiles:
+                    assert plan.grid >= 0.9 * tadc.TARGET_CTAS
+                assert all(ctas), 'a CTA without work'
+                for units in ctas:
+                    for sel, slots, qs in units:
+                        # a warp's 32 threads of 4 lanes hold the group's 128 slots
+                        assert len(slots) == 128 and slots.start % 128 == 0
+                        seen[sel, slots.start // 128, qs.start:qs.stop] += 1
+            assert (seen == 1).all(), (nq, plan)
+
+
+@pytest.mark.parametrize('n_sel', [1, 2, 8, 15, 16, 17, 40, 118, 139, 140, 300])
 def test_ivf_plan_covers_each_cell_once(n_sel):
     """K6/K7's plans over the chip run's selections of 1,024-slot blocks
     (probe sets padded with -1, and the IVF-PQ phase's 118-139 blocks):
-    every (selection, group, slot lane, query) once, for Q = 1..130."""
+    every (selection, group, slot lane, query) once, for Q = 1..130 on the
+    lookup core's plan and Q = 1..33 on ``ivf_plan``'s."""
     from test_torch_adc import _check_plan_covers
     _check_plan_covers(n_sel, 1024, 64, 256, range(1, 131))
+    _check_ivf_plan_covers(n_sel, 1024, 64, 256, IVF_QUERIES)
+
+
+def test_ivf_plan_shapes():
+    """The IVF-PQ phase's shapes: K6 at Q = 8, S = 139 one CTA on each of
+    132 SMs with the tile's table resident (two queries a tile); K7 at Q = 1
+    its own body of 16 one-warp CTAs, the lookup core above two queries; u16
+    codes at K = 1024 read their tables through L2."""
+    p6 = tivf.ivf_plan('ivf_block_top2', 8, 139, 1024, 64, 256)
+    assert (p6.kernel, p6.qt, p6.tiles, p6.grid, p6.smem_tab) == ('top2', 2, 4, 132, True)
+    assert p6.smem == 64 * 256 * 2 * 4 + 16 * 2 * 128 * 4 + 16
+    assert tivf.ivf_plan('ivf_block_top2', 1, 16, 1024, 64, 256).qt == 1
+    assert not tivf.ivf_plan('ivf_block_top2', 8, 139, 1024, 64, 1024).smem_tab
+    # K6's body by its cost model, on both sides of the crossovers measured
+    # on the card: few selections leave the core's grid short of the card
+    for nq, n_sel, body in ((8, 139, 'top2'), (33, 139, 'top2'), (64, 139, 'core'),
+                            (8, 256, 'core'), (17, 256, 'top2'), (64, 256, 'core')):
+        assert tivf.ivf_plan('ivf_block_top2', nq, n_sel, 1024, 64, 256).kernel == body
+    p7 = tivf.ivf_plan('ivf_scores', 1, 1, 1024, 64, 256)
+    assert (p7.kernel, p7.grid, p7.threads) == ('rows', 16, 32)
+    assert tivf.ivf_plan('ivf_scores', 2, 15, 1024, 64, 256).kernel == 'rows'
+    assert tivf.ivf_plan('ivf_scores', 3, 15, 1024, 64, 256).kernel == 'core'
+    assert p7.smem_tab and p7.smem == 65536 + 128  # the table, then its mbarriers
+    assert not tivf.ivf_plan('ivf_scores', 1, 1, 1024, 64, 1024).smem_tab  # 256 KB: L2
+    assert tivf.ivf_plan('ivf_scores', 2, 1, 1024, 64, 256).smem == 131072 + 128
+
+
+def _insert(v, g, m1, g1, m2, g2):
+    """Strict-'<' insertion of ``(v, g)`` into running top-2s (numpy)."""
+    new1 = v < m1
+    new2 = ~new1 & (v < m2)
+    m2n = np.where(new1, m1, np.where(new2, v, m2))
+    g2n = np.where(new1, g1, np.where(new2, g, g2))
+    return np.where(new1, v, m1), np.where(new1, g, g1), m2n, g2n
+
+
+def _k6_model(sel, dtable, cb, mb, plan, order):
+    """A plain model of K6's work split (csrc/ivf.cu ivf_top2_kernel): each
+    CTA of ``plan`` walks its units, keeps running top-2s per selection,
+    writes a selection whole in its range and leaves a partial for one its
+    range cuts; the last CTA of a cut selection (CTAs finishing in
+    ``order``) inserts the pieces in ascending order by adc_merge's rule."""
+    tsel = torch.from_numpy(sel)
+    acc = tivf._ivf_scores_ref(tsel, torch.from_numpy(dtable), torch.from_numpy(cb))
+    safe = np.maximum(sel, 0)
+    bias = np.where(mb[safe] > 0, np.float32(0), np.float32(BIG))
+    pad = np.where(sel >= 0, np.float32(0), np.float32(BIG))
+    # (acc + slot bias) + pad bias in float32 (BIG + BIG is inf): [S, Q, BS]
+    with np.errstate(over='ignore'):
+        v_all = (acc.numpy() + bias[:, None, :]) + pad[:, None, None]
+    nq, n_sel, bs = dtable.shape[0], len(sel), cb.shape[2]
+    groups = bs // 128
+    s_out = np.full((nq, n_sel * 256), np.nan, np.float32)
+    r_out = np.full((nq, n_sel * 256), -1, np.int64)
+    part, counters = {}, {}
+    lane = np.arange(128)
+
+    def final(t, j, m1, g1, m2, g2):
+        qs = slice(t * plan.qt, min(nq, t * plan.qt + plan.qt))
+        nrow = qs.stop - qs.start
+        s_out[qs, j * 256:j * 256 + 128] = m1[:nrow]
+        s_out[qs, j * 256 + 128:j * 256 + 256] = m2[:nrow]
+        r_out[qs, j * 256:j * 256 + 128] = j * bs + g1[:nrow] * 128 + lane
+        r_out[qs, j * 256 + 128:j * 256 + 256] = (j * bs + np.minimum(g2[:nrow], groups - 1) * 128
+                                                  + lane)
+
+    def pieces(j):  # the CTAs of a tile (by index in the tile) holding selection j
+        first = j * groups
+        return [ci for ci in range(plan.cpt)
+                if tivf._unit_lo(plan, ci) <= first + groups - 1
+                and tivf._unit_lo(plan, ci + 1) > first]
+
+    for c in order:
+        t, ci = divmod(c, plan.cpt)
+        lo, hi = tivf._unit_lo(plan, ci), tivf._unit_lo(plan, ci + 1)
+        state, cut = None, []
+
+        def flush():
+            j, m1, g1, m2, g2 = state
+            if j * groups >= lo and (j + 1) * groups <= hi:
+                final(t, j, m1, g1, m2, g2)
+            else:
+                slot = 0 if j * groups <= lo else 1
+                part[c, slot] = (m1, g1, m2, g2)
+                cut.append(j)
+
+        for u in range(lo, hi):
+            j, grp = divmod(u, groups)
+            if state is None or state[0] != j:
+                if state is not None:
+                    flush()
+                inf = np.full((plan.qt, 128), np.float32(np.inf))
+                zero = np.zeros((plan.qt, 128), np.int64)
+                state = (j, inf, zero, inf, zero)
+            v = np.full((plan.qt, 128), np.float32(np.inf))
+            nrow = min(nq, t * plan.qt + plan.qt) - t * plan.qt
+            v[:nrow] = v_all[j, t * plan.qt:t * plan.qt + nrow, grp * 128:grp * 128 + 128]
+            state = (j,) + _insert(v, grp, *state[1:])
+        flush()
+        for j in cut:
+            counters[t, j] = counters.get((t, j), 0) + 1
+            cs = pieces(j)
+            if counters[t, j] < len(cs):
+                continue
+            m1 = g1 = m2 = g2 = None
+            for cc in cs:  # ascending pieces; strict '<' on the scores alone
+                slot = 0 if tivf._unit_lo(plan, cc) >= j * groups else 1
+                p1, h1, p2, h2 = part[t * plan.cpt + cc, slot]
+                if m1 is None:
+                    m1, g1, m2, g2 = p1, h1, p2, h2
+                    continue
+                for vv, gv in ((p1, h1), (p2, h2)):
+                    m1, g1, m2, g2 = _insert(vv, gv, m1, g1, m2, g2)
+            final(t, j, m1, g1, m2, g2)
+    return s_out, r_out
+
+
+@pytest.mark.parametrize('ctas', [5, 132])
+@pytest.mark.parametrize('nq', [1, 2, 7, 9])
+@pytest.mark.parametrize('bs,n_sel', [(512, 3), (512, 20), (1024, 17)])
+def test_k6_work_split_equal_ref(bs, n_sel, nq, ctas):
+    """K6's work split (units over ``ctas`` CTAs, partial top-2s of cut
+    selections merged by the last CTA in piece order) equals
+    ``_ivf_block_top2_ref`` bit for bit on tie-heavy inputs: a table of few
+    values, duplicated code columns and blocks, masked slots, -1 pads; the
+    CTAs finish in a shuffled order."""
+    rng = np.random.default_rng(bs + n_sel + nq + ctas)
+    n_blocks, g = 6, bs // 128
+    cb = rng.integers(0, 16, (n_blocks, M, bs)).astype(np.uint8)
+    cb[:, :, 128:256] = cb[:, :, :128]  # group 1 repeats group 0
+    cb[1] = cb[0]
+    mb = (rng.random((n_blocks, bs)) < 0.8).astype(np.int8)
+    mb[:, 128:256] = mb[:, :128]
+    mb[2, :] = 0  # a block with no live slot
+    dtable = rng.integers(0, 3, (nq, M, 16)).astype(np.float32)
+    sel = rng.integers(0, n_blocks, n_sel).astype(np.int32)
+    sel[:2] = [0, 1]
+    sel[-1] = -1
+    plan = tivf._top2_plan(nq, n_sel, bs, M, 16, ctas)
+    assert plan.units == plan.tiles * n_sel * g and plan.tiles == -(-nq // plan.qt)
+    assert plan.grid == plan.tiles * max(1, min(n_sel * g, ctas // plan.tiles))
+    order = rng.permutation(plan.grid)
+    s, r = _k6_model(sel, dtable, cb, mb, plan, order)
+    want_s, want_r = tivf._ivf_block_top2_ref(torch.from_numpy(sel), torch.from_numpy(dtable),
+                                              torch.from_numpy(cb), torch.from_numpy(mb))
+    np.testing.assert_array_equal(r, want_r.numpy())
+    np.testing.assert_array_equal(s, want_s.numpy())
