@@ -1,6 +1,7 @@
 // Pieces of the table-lookup kernels shared by csrc/adc.cu (the lookup core
-// of K4, K5 and K7 above two queries) and csrc/ivf.cu (K6, K7): wide code
-// loads and the bucketed top-2's insertion rule.
+// of K4, K5 and K7 above two queries), csrc/ivf.cu (K6, K7) and
+// csrc/adc_i8.cu (K9): wide code loads and the bucketed top-2's insertion
+// rule.
 #pragma once
 
 #include <cstdint>

@@ -37,7 +37,8 @@ SIGNATURES = {
         'annlite_block_pass_info': [_I] * 4 + [_P],
     },
     'gather': {
-        'annlite_gather_rerank': [_P] * 4 + [_I] * 6 + [_P],
+        'annlite_gather_rerank': [_P] * 4 + [_I] * 7 + [_P],
+        'annlite_gather_info': [_I] * 2 + [_P],
     },
     'adc': {
         'annlite_adc_scores': [_P] * 5 + [_I] * 6 + [_P] * 2,
@@ -58,7 +59,8 @@ SIGNATURES = {
         'annlite_beam_pq': [_P] * 7 + [_I] * 14 + [_P],
     },
     'adc_i8': {
-        'annlite_adc_i8_scores': [_P] * 6 + [_I] * 5 + [_P],
+        'annlite_adc_i8_scores': [_P] * 7 + [_I] * 6 + [_P] * 2,
+        'annlite_adc_i8_info': [_I] * 2 + [_P],
     },
 }
 

@@ -8,10 +8,14 @@ int8 without reordering any query's scores: each (q, m) row is centred on
 A score is then ``float(sum_m t8[q, m, code]) * scale[q] + offset[q]``; the
 only error is the rounding of each table entry (at most scale / 2).
 
-Kernel (``csrc/adc_i8.cu``, K9): one query's int8 table in shared memory, an
-int32 sum (exact, in any order), and the epilogue ``acc * scale + offset``
-with one rounding after each operation; BIG where the mask is 0.  Its plain
-version ``_adc_scores_i8_ref`` computes the same, bit for bit.
+Kernel (``csrc/adc_i8.cu``, K9, planned by :func:`adc_i8_plan`): a tile of
+1, 4 or 8 queries per CTA, whose int8 tables an interleave kernel lays out
+biased to u8 as ``[tile][m][kp][QT]`` so one 4- or 8-byte shared read serves
+the tile; four codes per load; sums in 16-bit lanes, two queries per add,
+folded into 32-bit sums every 256 subspaces (exact, in any order); the
+epilogue ``acc * scale + offset`` with one rounding after each operation; BIG
+where the mask is 0.  Its plain version ``_adc_scores_i8_ref`` computes the
+same, bit for bit.
 
 Difference from the JAX package: off the TPU ``adc_scores_i8`` there skips
 the quantization and returns the exact float32 scores of ``adc_scores_ref``.
@@ -25,16 +29,105 @@ equal the JAX function's.  The offsets are summed over m in order 0..M-1;
 XLA sums blocks of 32 subspaces, so above M = 32 an offset may differ from
 the JAX function's in its last bit.
 """
-from typing import Optional, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import BIG, _ext
-from .adc import _code_bytes, _mask_row, _widen
+from .adc import _code_bytes, _mask_row, _round_up, _widen
 
-# one subspace of one query's int8 table must fit in the 227 KB of shared
-# memory a CUDA block may use (the kernel tiles the table over subspaces)
+# the codewords the wrapper takes (the limit of the first kernel, which held
+# one subspace of one query's table in shared memory); the kernel stages only
+# the codewords a code can name, 256 for u8 and 65,536 for u16 codes
 MAX_I8_CLUSTERS = 232448
+# shared memory a CUDA block may use (227 KB), and what an H100 SM gives its
+# blocks (228 KB, 1 KB of it reserved per block)
+MAX_SMEM = 232448
+SM_SMEM = 233472
+BAR_BYTES = 16                # the mbarrier after the table
+# query tiles csrc/adc_i8.cu instantiates, and the CTAs per SM each is
+# compiled for (its __launch_bounds__)
+QUERY_TILES = (1, 4, 8)
+CTAS_PER_SM = {1: 2, 4: 2, 8: 1}
+THREADS = 512
+ROWS_PER_THREAD = 4           # one 32-bit (u8) or 64-bit (u16) code load
+TILE_ROWS = THREADS * ROWS_PER_THREAD
+FLUSH = 256                   # subspaces a 16-bit lane sums exactly: 255 * 256 < 2^16
+TARGET_SMS = 132
+
+
+class AdcI8Plan(NamedTuple):
+    """Launch of K9: ``tiles`` query tiles of ``qt`` queries (the last may
+    hold fewer), each table ``[m][kp][qt]`` bytes (``kp``: the codewords a
+    code can name, rounded up to 16); the table resident when one chunk of
+    ``mc`` subspaces holds it (``nchunks == 1``), else streamed per 2048 rows;
+    ``grid`` = ``ranges`` x ``tiles`` CTAs (the tile fastest) of
+    ``rows_per_cta`` rows (the codes' row stride ``ld``, N rounded up to 4,
+    cut in ranges)."""
+    qt: int
+    tiles: int
+    kp: int
+    mc: int
+    nchunks: int
+    ranges: int
+    rows_per_cta: int
+    grid: int
+    smem: int
+
+
+def adc_i8_plan(nq: int, n: int, m: int, k: int, code_bytes: int = 1,
+                qt: Optional[int] = None) -> AdcI8Plan:
+    """K9's launch for ``nq`` queries over ``n`` rows, ``m`` subspaces of
+    ``k`` codewords.  Tiles are balanced (9 queries take two tiles of 8, 3
+    one of 4, 1 one of 1) among the widths whose one subspace fits shared
+    memory; ``qt`` forces a width (to time the others).  The table stays
+    resident where the tile's whole table fits, else it streams in balanced
+    chunks.  Row ranges fill one wave of the card's SMs at the CTAs per SM
+    the width allows."""
+    kp = _round_up(min(k, 256 if code_bytes == 1 else 65536), 16)
+    fit = [t for t in QUERY_TILES if kp * t + BAR_BYTES <= MAX_SMEM]
+    if qt is None:
+        tiles = -(-nq // fit[-1])
+        qt = next(t for t in fit if t * tiles >= nq)
+    elif qt not in fit:
+        raise ValueError(f'adc_i8_plan: no tile of {qt} queries at K = {k}')
+    tiles = -(-nq // qt)
+    per_m = kp * qt
+    mc = min(m, (MAX_SMEM - BAR_BYTES) // per_m)
+    nchunks = -(-m // mc)
+    mc = -(-m // nchunks)
+    smem = mc * per_m + BAR_BYTES
+    per_sm = max(1, min(CTAS_PER_SM[qt], SM_SMEM // (smem + 1024)))
+    ld = _round_up(n, 4)
+    ranges = max(1, min(TARGET_SMS * per_sm // tiles, -(-ld // TILE_ROWS)))
+    rows = _round_up(-(-ld // ranges), ROWS_PER_THREAD)
+    ranges = -(-ld // rows)
+    return AdcI8Plan(qt, tiles, kp, mc, nchunks, ranges, rows, ranges * tiles, smem)
+
+
+def adc_i8_plan_ctas(plan: AdcI8Plan, nq: int, n: int) -> List[Tuple[range, range]]:
+    """Each CTA's ``(rows, queries)`` in ``blockIdx`` order, as the kernel
+    computes them (rows past N are computed and not stored)."""
+    out = []
+    for b in range(plan.grid):
+        tile, rg = b % plan.tiles, b // plan.tiles
+        lo = rg * plan.rows_per_cta
+        out.append((range(lo, min(n, lo + plan.rows_per_cta)),
+                    range(tile * plan.qt, min(nq, tile * plan.qt + plan.qt))))
+    return out
+
+
+def adc_i8_info(nq: int, n: int, m: int, k: int, code_bytes: int = 1) -> dict:
+    """K9's plan at these shapes, the kernels one call launches (the
+    interleave and the scores) and the registers and spilled bytes per
+    thread of the scores kernel.  Builds the kernels; needs a card."""
+    plan = adc_i8_plan(nq, n, m, k, code_bytes)
+    out = (ctypes.c_int * 2)()
+    _ext.check(_ext.library('adc_i8').annlite_adc_i8_info(code_bytes, plan.qt, out),
+               'adc_i8_info')
+    return {**plan._asdict(), 'kernel_launches': 2, 'registers': out[0],
+            'spill_bytes': out[1]}
 
 
 def quantize_dtable(dtable: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -84,11 +177,33 @@ def adc_i8_kernel(t8, codes_t, mask, scale, offset):
     out = torch.empty((q, n), dtype=torch.float32, device=t8.device)
     if q == 0 or n == 0:
         return out
+    return _adc_i8_launch(adc_i8_plan(q, n, m, k, _code_bytes(codes_t)), t8, codes_t, mask,
+                          scale, offset, out)
+
+
+def _adc_i8_launch(plan: AdcI8Plan, t8, codes_t, mask, scale, offset, out):
+    """K9 on ``plan``, into ``out``.  The kernel loads 4 rows of codes and
+    mask at once: codes and mask of an N that is not a multiple of 4, or not
+    8- and 4-byte aligned, are padded into an aligned copy first."""
+    q, m, k = t8.shape
+    n = codes_t.shape[1]
+    cb = _code_bytes(codes_t)
+    ld = _round_up(n, 4)
+    if ld != n:
+        codes_t = torch.nn.functional.pad(codes_t.view(torch.int8) if cb == 1
+                                          else codes_t.view(torch.int16), (0, ld - n))
+        mask = torch.nn.functional.pad(mask, (0, ld - n))
+    if codes_t.data_ptr() % 8:
+        codes_t = codes_t.clone()
+    if mask.data_ptr() % 4:
+        mask = mask.clone()
+    tab = torch.empty(plan.tiles * m * plan.kp * plan.qt, dtype=torch.uint8, device=t8.device)
+    args = (ctypes.c_int * 5)(plan.qt, plan.tiles, plan.kp, plan.mc, plan.rows_per_cta)
     lib = _ext.library('adc_i8')
     with torch.cuda.device(t8.device):
         _ext.check(lib.annlite_adc_i8_scores(
             t8.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), scale.data_ptr(),
-            offset.data_ptr(), out.data_ptr(), q, m, k, n, _code_bytes(codes_t),
+            offset.data_ptr(), out.data_ptr(), tab.data_ptr(), q, m, k, n, ld, cb, args,
             _ext.stream_ptr(t8)), 'adc_scores_i8')
     adc_i8_kernel.launches += 1
     return out

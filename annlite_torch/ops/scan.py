@@ -91,10 +91,6 @@ def unpack_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return lo.to(torch.int8), hi.to(torch.int8)
 
 
-def _big(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(BIG, dtype=torch.float32, device=like.device)
-
-
 def _approx_scores(q, x_scan, row_scale, norms_sq, metric_val: int,
                    packed_int4: bool = False):
     """First-pass scores [Q, N] from the quantized corpus (int8 or packed
@@ -118,7 +114,8 @@ def _exact_rerank(q, x_f32, cand, cand_masked, metric_val: int, k: int):
     from .gather import gather_rerank_dists
 
     d = gather_rerank_dists(q, x_f32, cand, metric_val)
-    d = torch.where(cand_masked, _big(d), d)
+    # masked_fill takes BIG as a scalar: no copy from the host
+    d = d.masked_fill(cand_masked, BIG)
     vals, pos = topk(d, k)
     return vals, torch.gather(cand, 1, pos)
 
@@ -128,7 +125,7 @@ def _scan_rerank_topk(q, x_scan, row_scale, norms_sq, mask, k: int,
                       packed_int4: bool = False):
     scores = _approx_scores(q, x_scan, row_scale, norms_sq, metric_val,
                             packed_int4)
-    scores = torch.where(mask[None, :] > 0, scores, _big(scores))
+    scores = scores.masked_fill(mask[None, :] <= 0, BIG)
     if x_f32 is None:
         d, rows = topk(scores, k)
         return d, rows.to(torch.int32)

@@ -37,7 +37,15 @@ line:
    table read from global memory), and ef 1024 and 2048 at Q = 8 (2,048 and
    4,096 sort slots); beyond the sort ceiling (ef 4096) the
    search must take the eager loop around K8; ``adc_scores_i8`` (K9) at the ADC
-   shapes, also within 1% of K5, and once through its entry point; the
+   shapes and at its plan's edges (Q in {1, 3, 4, 5, 8, 9, 64, 100}; M = 258
+   u8 and u16 codes at K = 1024 over N = 2^17 + 5), masked and unmasked, also
+   within 1% of K5, its plans, registers and spills printed, and once through
+   its entry point; ``gather_rerank`` (K3) at the flat path's and the
+   facade's shapes (R = 40, ids out of range), at R in {1, 128, 1000} and Q
+   in {1, 65}, with scalar loads (D = 100, an unaligned base) and at D =
+   ``MAX_GATHER_DIM``, timed at Q in {64, 1} and R in {40, 128} beside its
+   bound and the two calls ``index_select`` + ``torch.bmm``, its plans,
+   registers and spills printed; the
    int4 and bf16 block passes (``block_top2_int4``, ``block_top2_bf16``) and
    ``lane8_merge`` over their candidates at N = 2^20, D = 768, Q = 64, 1, 5,
    65 and 128, cosine, L2 and a 5% mask, bf16 also on dyadic rows, and at
@@ -374,6 +382,32 @@ def main() -> int:
     qf = q.contiguous()
     check_gather('n=2^20 d=768', l2_normalize(qf), x, cand, Metric.COSINE)
     check_gather('n=2^20 d=768', qf, x, cand, Metric.EUCLIDEAN)
+    # K3 at the edges of its plan and of its load paths: R in {1, 128, 1000}
+    # (128: the int4 shortlist), Q in {1, 65}; scalar loads at D = 100 and on
+    # an unaligned base (the corpus seen from 4 bytes in); the loop over the
+    # row at D = MAX_GATHER_DIM
+    qe = torch.randn((65, d), device=dev, generator=g)
+    for nq_, r_ in ((1, 1), (1, 40), (1, 128), (65, 128), (65, 1000), (64, 1)):
+        cand_e = torch.randint(-5, n + 5, (nq_, r_), device=dev, generator=g,
+                               dtype=torch.int32)
+        check_gather('n=2^20 d=768', l2_normalize(qe[:nq_]), x, cand_e, Metric.COSINE)
+        check_gather('n=2^20 d=768', qe[:nq_], x, cand_e, Metric.EUCLIDEAN)
+    x_off = x.view(-1)[1:1 + (n - 1) * d].view(n - 1, d)
+    if ga._vec4(qf, x_off):
+        fail('gather_rerank: the offset view should take the scalar loads')
+    for nq_ in (64, 1):
+        for metric in (Metric.EUCLIDEAN, Metric.COSINE):
+            check_gather('n=2^20-1 d=768 unaligned base', qf[:nq_], x_off, cand[:nq_] - 1,
+                         metric)
+    for de, ne in ((100, 65536), (ga.MAX_GATHER_DIM, 4096)):
+        xe = torch.randn((ne, de), device=dev, generator=g)
+        qe_ = torch.randn((64, de), device=dev, generator=g)
+        for nq_, r_ in ((64, 40), (1, 128)):
+            cand_e = torch.randint(-5, ne + 5, (nq_, r_), device=dev, generator=g,
+                                   dtype=torch.int32)
+            for metric in (Metric.EUCLIDEAN, Metric.COSINE):
+                check_gather(f'n={ne} d={de}', qe_[:nq_], xe, cand_e, metric)
+    del qe, cand_e, x_off, xe, qe_
 
     # the facade's shapes: 100,000 rows of D = 128 in a device view padded to
     # 131072 (the padding masked by BIG), L2 bias, batches of 8 and 100
@@ -885,27 +919,49 @@ def main() -> int:
     }
     k4_merge_bound = merge_bound(64, nb_pq)
 
-    # K9 at the ADC shapes (N = 2^20, M = 64, K = 256, u8), Q = 1, 64 and
-    # 100, masked and unmasked: bit-equal to its plain version, and within
-    # 1% of K5's largest score (the int8 table's rounding)
-    i8_rel = 0.0
-    for nq_ in (1, 64, 100):
-        dt = dt_all[:nq_].contiguous()
+    # K9 at the ADC shapes (N = 2^20, M = 64, K = 256, u8) and at its plan's
+    # edges: Q in {1, 3, 4, 5, 8, 9, 64, 100} (tiles of 1, 4 and 8, Q not a
+    # multiple of the tile), M = 258 (the 16-bit lanes folded past 256
+    # subspaces, the table in chunks), u16 codes at K = 1024, N % 4 != 0;
+    # masked and unmasked: bit-equal to its plain version, and within 1% of
+    # K5's largest score (the int8 table's rounding)
+    i8_rel = [0.0]
+
+    def check_i8(tag, dt, codes, mk):
         t8, sc8, off8 = ai.quantize_dtable(dt)
         sc8, off8 = sc8[:, 0].contiguous(), off8[:, 0].contiguous()
+        tag = f'{tag} q={dt.shape[0]}'
+        out = ai.adc_i8_kernel(t8, codes, mk, sc8, off8)
+        if not torch.equal(out, ai._adc_scores_i8_ref(t8, codes, mk, sc8, off8)):
+            fail(f'adc_scores_i8 {tag}: scores differ from the plain version')
+        k5 = ad.adc_scores_kernel(dt, codes, mk)
+        keep = mk > 0
+        rel = ((out - k5)[:, keep].abs().max() / k5[:, keep].abs().max()).item()
+        if not rel < 0.01 or not torch.equal(out[:, ~keep], k5[:, ~keep]):
+            fail(f'adc_scores_i8 {tag}: {rel} of K5\'s largest score')
+        i8_rel[0] = max(i8_rel[0], rel)
+        checks.append(f'adc_scores_i8 {tag}: scores bit-equal, within 1% of K5')
+
+    i8_qs = (1, 3, 4, 5, 8, 9, 64, 100)
+    for nq_ in i8_qs:
         for mtag, mk in (('unmasked', ones_pq), ('mask 50%', keep_pq)):
-            out = ai.adc_i8_kernel(t8, codes_pq, mk, sc8, off8)
-            if not torch.equal(out, ai._adc_scores_i8_ref(t8, codes_pq, mk, sc8, off8)):
-                fail(f'adc_scores_i8 q={nq_} {mtag}: scores differ from the plain version')
-            k5 = ad.adc_scores_kernel(dt, codes_pq, mk)
-            keep = mk > 0
-            rel = ((out - k5)[:, keep].abs().max() / k5[:, keep].abs().max()).item()
-            if not rel < 0.01 or not torch.equal(out[:, ~keep], k5[:, ~keep]):
-                fail(f'adc_scores_i8 q={nq_} {mtag}: {rel} of K5\'s largest score')
-            i8_rel = max(i8_rel, rel)
-            checks.append(f'adc_scores_i8 n=2^20 m=64 k=256 u8 {mtag} q={nq_}: '
-                          'scores bit-equal, within 1% of K5')
-    del out, k5, keep
+            check_i8(f'n=2^20 m=64 k=256 u8 {mtag}', dt_all[:nq_].contiguous(), codes_pq, mk)
+    ne9 = (1 << 17) + 5
+    keep9 = (torch.rand(ne9, device=dev, generator=g) < 0.5).to(torch.int8)
+    for m9, k9, dt9 in ((258, 256, torch.uint8), (64, 1024, torch.uint16)):
+        codes9 = torch.randint(0, k9, (m9, ne9), device=dev, generator=g,
+                               dtype=torch.int32).to(dt9)
+        tab9 = torch.rand((100, m9, k9), device=dev, generator=g) * 10
+        for nq_ in i8_qs:
+            for mtag, mk in (('unmasked', torch.ones_like(keep9)), ('mask 50%', keep9)):
+                check_i8(f'n=2^17+5 m={m9} k={k9} {str(dt9)[6:]} {mtag}',
+                         tab9[:nq_].contiguous(), codes9, mk)
+    del codes9, tab9, keep9
+    i8_geometry = {f'q{q_} n={ntag} m={m_} k={k_} cb{cb}': ai.adc_i8_info(q_, n_, m_, k_, cb)
+                   for q_, ntag, n_, m_, k_, cb in (
+                       (64, '2^20', npq, pm, pk, 1), (1, '2^20', npq, pm, pk, 1),
+                       (3, '2^20', npq, pm, pk, 1), (100, '2^20', npq, pm, pk, 1),
+                       (64, '2^17+5', ne9, 258, 256, 1), (64, '2^17+5', ne9, 64, 1024, 2))}
     t8, sc8, off8 = ai.quantize_dtable(dt64)
     sc8, off8 = sc8[:, 0].contiguous(), off8[:, 0].contiguous()
     # library yardstick: K5's embedding_bag over the int8 table widened to
@@ -929,14 +985,35 @@ def main() -> int:
     del t8, sc8, off8, bag_w8, bag8, s_i8
     del dt_all, codes_pq, keep_pq, ones_pq, bag_idx, bag_w, bag, dt64
 
+    # K3 at Q = 64 and 1, R = 40 (the int8 and bf16 shortlists) and 128 (int4's),
+    # each beside its bound and the two-call yardstick index_select +
+    # torch.bmm in float32 (no one PyTorch call computes the rerank)
+    gather_times, gather_geometry = {}, {}
+    for nq_, r_ in ((64, 40), (64, 128), (1, 40), (1, 128)):
+        qg = l2_normalize(qf[:nq_])
+        cg = torch.randint(0, n, (nq_, r_), device=dev, generator=g, dtype=torch.int32)
+        cl = cg.long().view(-1)
+        qcol = qg.view(nq_, d, 1)
+        gather_times[f'q{nq_} r{r_}'] = {
+            'ms': cuda_ms(lambda: ga.gather_rerank(qg, x, cg, int(Metric.COSINE))),
+            'plain_ms': cuda_ms(lambda: ga._gather_rerank_ref(qg, x, cg, int(Metric.COSINE))),
+            'index_select_plus_bmm_ms_two_calls': cuda_ms(
+                lambda: torch.bmm(x.index_select(0, cl).view(nq_, r_, d), qcol)),
+            'bound_ms': bound(nq_ * d * 4 + nq_ * r_ * d * 4 + nq_ * r_ * 8,
+                              2.0 * nq_ * r_ * d, FP32_OPS_PER_S)[0]}
+        gather_geometry[f'q{nq_} r{r_} d{d}'] = {**ga.gather_plan(nq_, r_)._asdict(),
+                                                 **ga.gather_info(d)}
+    gather_geometry['d100 scalar'] = ga.gather_info(100, vec4=False)
+    gather_geometry[f'd{ga.MAX_GATHER_DIM}'] = ga.gather_info(ga.MAX_GATHER_DIM)
+    del qg, cg, cl, qcol
+
     cos_bias = cases[0][1]
     times = {
         'block_top2': (cuda_ms(lambda: fs.block_top2(q8, qsc, x8, xs, cos_bias, br, -1.0)),
                        cuda_ms(lambda: fs._fused_scan_ref(q8, qsc, x8, xs, cos_bias, br, -1.0))),
         'lane8_merge': (cuda_ms(lambda: fs.lane8_merge(s_blk, r_blk)),
                         cuda_ms(lambda: fs._lane8_merge_ref(s_blk, r_blk))),
-        'gather_rerank': (cuda_ms(lambda: ga.gather_rerank(qf, x, cand, 3)),
-                          cuda_ms(lambda: ga._gather_rerank_ref(qf, x, cand, 3))),
+        'gather_rerank': (gather_times['q64 r40']['ms'], gather_times['q64 r40']['plain_ms']),
     }
     block_ms_16k = cuda_ms(lambda: fs.block_top2(q8, qsc, x8_s, xs_s, bias_s, br, -1.0))
     block_plain_ms_16k = cuda_ms(lambda: fs._fused_scan_ref(q8, qsc, x8_s, xs_s, bias_s, br, -1.0))
@@ -969,7 +1046,10 @@ def main() -> int:
           'k4_lane8_merge_bound_ms': k4_merge_bound,
           'k4_adc_block_top2_q1_ms': k4_q1_ms,
           'adc_geometry': adc_geometry,
-          'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel,
+          'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel[0],
+          'adc_scores_i8_geometry': i8_geometry,
+          'gather_rerank_times': gather_times,
+          'gather_rerank_geometry': gather_geometry,
           'adc_scores_i8_entry_point_launches': i8_counts,
           'block_top2_variants_ms_q1': variant_q1_ms,
           'block_top2_variants_ms_q32': variant_q32_ms,
@@ -1033,6 +1113,8 @@ def main() -> int:
 
         (run, res), counts = drive(f'flat {mode} 2^20x768',
                                    [block_kernel, 'lane8_merge', 'gather_rerank'], flat_path)
+        if counts['gather_rerank'] != 4:
+            fail(f'flat {mode}: {counts["gather_rerank"]} gather_rerank launches in 4 searches')
         if not exact_top10:
             xdev = index._buf.device_view()
             exact = torch.sort(1.0 - l2_normalize(queries) @ xdev.T, dim=1, stable=True)

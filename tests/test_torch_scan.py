@@ -282,6 +282,84 @@ def test_gather_rerank_dists_equal_jax(metric):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-6 * D)
 
 
+@pytest.mark.parametrize('r', [1, 40, 128, 1000])
+@pytest.mark.parametrize('nq', [1, 3, 64, 65, 100])
+def test_gather_plan_covers_each_pair_once(nq, r):
+    """The kernel's warps (one (query, candidate) pair each) cover every pair
+    exactly once, in CTAs of at most 8 warps, and spread over as many CTAs
+    as an H100 has SMs wherever there are that many pairs."""
+    plan = tga.gather_plan(nq, r)
+    assert 1 <= plan.warps <= tga.MAX_WARPS
+    assert plan.grid >= min(tga.TARGET_CTAS, nq * r)
+    seen = np.zeros((nq, r), np.int32)
+    pairs = tga.gather_plan_pairs(plan, nq, r)
+    assert len(pairs) == plan.grid * plan.warps
+    for p in pairs:
+        if p is not None:
+            seen[p] += 1
+    assert (seen == 1).all()
+    assert sum(p is None for p in pairs) < plan.warps  # only the last CTA is cut
+
+
+@pytest.mark.parametrize('metric', list(Metric))
+def test_exact_rerank_masked_slots_score_big(metric):
+    """Masked and padded shortlist slots score exactly BIG (float32) and
+    never displace a live candidate, even where their rows are the nearest:
+    the query's own row sits in two masked slots."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((50, D)).astype(np.float32)
+    if metric == Metric.COSINE:
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[[7, 8]].copy()
+    cand = np.array([[7, 3, 7, 11, 20, 21], [30, 8, 31, 32, 8, 33]], np.int32)
+    masked = np.array([[True, False, True, False, False, True],
+                       [False, True, False, False, True, True]])
+    d, ids = tsc._exact_rerank(torch.from_numpy(q), torch.from_numpy(x),
+                               torch.from_numpy(cand), torch.from_numpy(masked),
+                               int(metric), 5)
+    d, ids = d.numpy(), ids.numpy()
+    assert d.dtype == np.float32
+    for row in range(2):
+        live = cand[row][~masked[row]]
+        assert sorted(ids[row][:len(live)].tolist()) == sorted(live.tolist())
+        assert (d[row][:len(live)] < BIG).all()
+        assert (d[row][len(live):] == np.float32(BIG)).all()
+        assert (np.diff(d[row]) >= 0).all()
+
+
+@pytest.mark.parametrize('fused', [False, True])
+@pytest.mark.parametrize('metric', list(Metric))
+def test_scan_topk_few_alive_rows_pad_big_equal_jax(metric, fused):
+    """Fewer alive rows than k: the shortlist's padded slots score BIG and
+    come last, the alive rows first with their exact distances, as in the
+    JAX package."""
+    n, k = 16384, 10
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    if metric == Metric.COSINE:
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[[5, 9]].copy()
+    codes, scale = jsc.quantize_rows_int8(x)
+    norms = np.sum(x * x, axis=1).astype(np.float32)
+    mask = np.zeros(n, np.int8)
+    mask[[3, 5, 9, 4000]] = 1
+    jd, ji = jsc.scan_topk(jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scale),
+                           jnp.asarray(norms), jnp.asarray(mask), k, metric,
+                           x_f32=jnp.asarray(x), fused=fused)
+    td, ti = tsc.scan_topk(torch.from_numpy(q), torch.from_numpy(codes),
+                           torch.from_numpy(scale), torch.from_numpy(norms),
+                           torch.from_numpy(mask), k, metric,
+                           x_f32=torch.from_numpy(x), fused=fused)
+    td, ti = td.numpy(), ti.numpy()
+    jd = np.asarray(jd)
+    for row in range(2):
+        assert sorted(ti[row][:4].tolist()) == [3, 5, 9, 4000]
+        assert (td[row][4:] == np.float32(BIG)).all()
+        np.testing.assert_array_equal(td[row][4:], jd[row][4:])
+        np.testing.assert_array_equal(ti[row][:4], np.asarray(ji)[row][:4])
+        np.testing.assert_allclose(td[row][:4], jd[row][:4], rtol=1e-5, atol=1e-5)
+
+
 # ----------------------------- scan_topk -----------------------------
 
 
