@@ -257,14 +257,18 @@ def estimate_adc_self_recall(
     """Within-sample recall@k of the raw ADC ranking (rerank=0) against exact
     distances — a cheap build-time proxy for corpus-level raw-PQ recall.
     Queries are drawn from the sample and the ground truth is computed
-    within it, so the estimate costs O(n_queries * len(sample)) host work."""
-    x = pq._prep(np.asarray(x_sample, dtype=np.float32)).cpu().numpy()
+    within it, so the estimate costs O(n_queries * len(sample)) host work.
+    Codes and tables come from the raw rows, so a codec whose ``_prep``
+    rotates (OPQ) rotates them once; the exact distances use the prepared
+    rows (normalized for cosine; a rotation keeps distances)."""
+    xs = np.asarray(x_sample, dtype=np.float32)
+    x = pq._prep(xs).cpu().numpy()
     n = x.shape[0]
     rng = np.random.default_rng(seed)
     qi = rng.choice(n, size=min(n_queries, n), replace=False)
     q = x[qi]
-    codes = pq.encode(x).astype(np.int64)          # [n, M]
-    dt = pq.get_dist_mat(q)                        # [Q, M, K]
+    codes = pq.encode(xs).astype(np.int64)         # [n, M]
+    dt = pq.get_dist_mat(xs[qi])                   # [Q, M, K]
     m_idx = np.arange(pq.n_subvectors)[None, :]
     adc = np.stack([dt[j][m_idx, codes].sum(axis=1) for j in range(len(q))])
     if pq.metric == Metric.EUCLIDEAN:

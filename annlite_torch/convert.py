@@ -12,7 +12,7 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
-from .codecs import PQCodec, VQCodec
+from .codecs import OPQCodec, PQCodec, ProjectorCodec, VQCodec
 from .index.flat import FlatIndex
 from .index.graph import GraphIndex
 from .index.ivf_pq import IVFPQIndex
@@ -77,6 +77,20 @@ def vq_codec_from_jax_state(params: Mapping, arrays: Mapping[str, np.ndarray],
     return _codec_from_jax_state(VQCodec, params, arrays, device)
 
 
+def opq_codec_from_jax_state(params: Mapping, arrays: Mapping[str, np.ndarray],
+                             device: Device = None) -> OPQCodec:
+    """An :class:`OPQCodec` from a JAX ``OPQCodec._state()`` (the PQ state
+    plus ``opq_iters``, ``opq_init`` and the ``rotation`` array)."""
+    return _codec_from_jax_state(OPQCodec, params, arrays, device)
+
+
+def projector_codec_from_jax_state(params: Mapping, arrays: Mapping[str, np.ndarray],
+                                   device: Device = None) -> ProjectorCodec:
+    """A :class:`ProjectorCodec` from a JAX ``ProjectorCodec._state()``
+    (moments, mean, components, explained variance)."""
+    return _codec_from_jax_state(ProjectorCodec, params, arrays, device)
+
+
 def pq_scan_index_from_jax_state(state: Mapping[str, np.ndarray], pq_codec: PQCodec,
                                  **index_kwargs) -> PQScanIndex:
     """A :class:`PQScanIndex` over ``pq_codec`` from a PQ-scan index's
@@ -105,9 +119,10 @@ def graph_index_from_jax_state(state: Mapping[str, np.ndarray],
                                **index_kwargs) -> GraphIndex:
     """A :class:`GraphIndex` from a graph index's ``state_arrays()``
     (vectors, adjacency, alive); ``index_kwargs`` (``metric``,
-    ``max_degree``, ``ef_search``, ``rerank``, ``traverse``, ``device``, ...)
-    go to the constructor.  A W-wide adjacency of the JAX package's device
-    build is consolidated to each row's ``max_degree`` nearest neighbours."""
+    ``max_degree``, ``ef_search``, ``rerank``, ``traverse``, ``build_mode``,
+    ``device``, ...) go to the constructor.  A W-wide adjacency of a device
+    build is kept as it is by ``build_mode='device'`` and consolidated to
+    each row's ``max_degree`` nearest neighbours by the host build."""
     _kind(state, 'graph')
     dim = np.asarray(state['vectors']).shape[1]
     index = GraphIndex(dim, pq_codec=pq_codec, **index_kwargs)

@@ -1,11 +1,15 @@
-"""Graph ANN index: host C++ Vamana construction + batched beam search on the
-card — the port of `annlite_tpu/index/graph.py`.
+"""Graph ANN index: Vamana construction + batched beam search on the card —
+the port of `annlite_tpu/index/graph.py`.
 
-Construction runs on the host in native code (`csrc/vamana.cpp` through
-`index/vamana_lib.py`) and yields a dense padded adjacency ``[N, R]``; the
-search runs on the device (`ops/beam.py`), scoring with the resident rows or,
-with a PQ codec, with per-query ADC tables (K8), followed by an exact rerank
-over bf16 rows.
+Construction runs on the host in native code (``build_mode='host'``:
+`csrc/vamana.cpp` through `index/vamana_lib.py`, a dense padded adjacency
+``[N, R]``) or batched on the device (``build_mode='device'``:
+`index/device_build.py`, a W-wide adjacency of R out-edges plus slack
+back-edge columns, which serving traverses).  The search runs on the device
+(`ops/beam.py`), scoring with the resident rows or, with a PQ codec, with
+per-query ADC tables (K8), followed by an exact rerank over bf16 rows.  An
+OPQ codec's tables are built from the rotated queries (the codec's
+``dist_mat`` rotates them once); the rerank stays in the original space.
 
 Filtered search: traversal still routes through every visited node, and the
 predicate is applied at selection (masked candidates leave the result list).
@@ -13,11 +17,14 @@ Below ``filter_fallback_selectivity`` a masked exact scan replaces the
 traversal (the reference's brute-force fallback when candidates < limit).
 Soft-deleted rows behave like filtered ones.
 
-Only the host build is ported: ``build_mode='device'`` (the device Vamana
-build, `index/device_build.py`) is ROADMAP item 16.  The OPQ rotation of the
-JAX searcher is left out with the OPQ codec.
+A device-built index that is synced and streams appends or updates patches
+its serving state (new codes only, fresh entry samples) instead of marking
+itself dirty, which would re-encode every row at the next search.  Each
+patch makes a new serving state and the builder never writes a buffer it
+handed out in place, so a ``device_searcher`` keeps the state it was built
+on.
 """
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Union
 
 import numpy as np
@@ -32,6 +39,7 @@ from ..ops.beam import (beam_search_int8, beam_search_packed, beam_search_pq,
                         beam_search_vectors, pack_neighbors)
 from ..ops.topk import topk
 from .base import BaseIndex
+from .device_build import DeviceVamanaBuilder
 from .vamana_lib import VamanaGraph
 
 
@@ -63,6 +71,8 @@ class GraphIndex(BaseIndex):
         rerank: int = 0,
         n_threads: int = 0,
         build_mode: str = 'host',
+        build_batch_size: int = 16384,
+        build_iters: Optional[int] = None,
         traverse: str = 'auto',
         entry_mode: str = 'sample',
         n_entry_samples: int = 4096,
@@ -72,11 +82,7 @@ class GraphIndex(BaseIndex):
         **kwargs,
     ):
         super().__init__(dim=dim, metric=metric, **kwargs)
-        if build_mode == 'device':
-            raise NotImplementedError(
-                "build_mode='device' (the device Vamana build) is not ported yet "
-                '(ROADMAP item 16); use the host build')
-        if build_mode != 'host':
+        if build_mode not in ('host', 'device'):
             raise ValueError(f'unknown build_mode {build_mode!r}')
         if traverse not in ('auto', 'pq', 'vectors', 'packed', 'int8'):
             raise ValueError(f'unknown traverse {traverse!r}')
@@ -102,6 +108,10 @@ class GraphIndex(BaseIndex):
         self.rerank = rerank
         self.n_threads = n_threads
         self.build_mode = build_mode
+        # the device build's insert batch and pools-stage beam iteration
+        # budget (None: max(L/B + 4, 10))
+        self.build_batch_size = build_batch_size
+        self.build_iters = build_iters
         self.filter_fallback_selectivity = filter_fallback_selectivity
         self.device = resolve_device(device)
         # rerank=0 + traverse='pq' serves the raw table ranking: guard its
@@ -136,10 +146,20 @@ class GraphIndex(BaseIndex):
                 f'{ids[:3]} at size {self.size}'
             )
         x = self._prep(x)
-        self._graph.add(x, n_threads=self.n_threads)
-        self._vectors = np.concatenate([self._vectors, x])
+        can_patch = self._can_patch()
+        if self.build_mode == 'device':
+            self._graph.add(x)
+            self._vectors = self._graph.vectors  # the builder owns the host copy
+        else:
+            self._graph.add(x, n_threads=self.n_threads)
+            self._vectors = np.concatenate([self._vectors, x])
         self._alive = np.concatenate([self._alive, np.ones(len(ids), bool)])
-        self._dirty = True
+        if can_patch:
+            # streaming ingest on a synced device-built index: encode only the
+            # new rows (a dirty flag would re-encode all N at the next search)
+            self._patch_device()
+        else:
+            self._dirty = True
         if self._recall_guard_pending:
             # accumulate across batches: small streaming batches must still
             # trip the one-shot >=512-row check
@@ -168,10 +188,73 @@ class GraphIndex(BaseIndex):
         if ids.min() < 0 or ids.max() >= self.size:
             raise ValueError('update_with_ids requires existing rows; got '
                              f'{ids.min()}..{ids.max()} at size {self.size}')
+        can_patch = self._can_patch()
         self._graph.update(ids, x)
-        self._vectors[ids] = x
+        if self.build_mode == 'device':
+            self._vectors = self._graph.vectors
+        else:
+            self._vectors[ids] = x
         self._alive[ids] = True
-        self._dirty = True
+        if can_patch:
+            # the builder's buffers are current: re-encode only these rows
+            self._patch_device(updated=ids)
+        else:
+            self._dirty = True
+
+    def _can_patch(self) -> bool:
+        """A synced device-built index patches its serving state after a
+        write; the packed and int8 traversal copies are rebuilt instead."""
+        return (not self._dirty and self.build_mode == 'device'
+                and self.traverse not in ('packed', 'int8'))
+
+    def _device_views(self):
+        """The builder's device rows and W-wide adjacency, cut to the live
+        ``n`` rows (views: nothing is copied)."""
+        vecs, adj = self._graph.device_arrays()
+        return vecs[: self.size], adj[: self.size]
+
+    def _patch_device(self, updated: Optional[np.ndarray] = None):
+        """A new serving state after an append (``updated=None``: codes of
+        the new rows appended, entry samples drawn anew) or an in-place
+        update of rows ``updated`` (their codes and entry rows refreshed)."""
+        s = self._serving
+        vecs, adj = self._device_views()
+        vectors = s.vectors
+        if vectors is not None:
+            vectors = vecs if vectors.dtype == torch.float32 else vecs.to(vectors.dtype)
+        codes, entry_ids, entry_vecs = s.codes, s.entry_ids, s.entry_vecs
+        if updated is None:
+            n_old = 0 if codes is None else codes.shape[0]
+            if codes is not None:
+                new = self.pq_codec.encode(self._vectors[n_old:])
+                codes = torch.cat([codes, torch.from_numpy(new).to(self.device)])
+            entry_ids, entry_vecs = self._entries(vectors)
+        else:
+            if codes is not None:
+                # the builder keeps the last of duplicate ids: encode its rows
+                rows = torch.from_numpy(updated.astype(np.int64)).to(self.device)
+                codes = codes.clone()
+                codes[rows] = torch.from_numpy(
+                    self.pq_codec.encode(self._vectors[updated])).to(self.device)
+            if entry_vecs is not None:
+                # an updated row may be one of the sampled beam seeds
+                entry_vecs = vectors[entry_ids.long()]
+        self._serving = replace(s, adj=adj, medoid=int(self._graph.medoid), vectors=vectors,
+                                codes=codes, entry_ids=entry_ids, entry_vecs=entry_vecs)
+
+    def _entries(self, vectors):
+        """Beam seeds of the vector-scored traversal: ``n_entry_samples``
+        stride-sampled rows and their vectors, or (None, None)."""
+        # vector-scored traversal only: under the coarse table scores the
+        # medoid's longer walk is the recall
+        if (self.entry_mode != 'sample' or not self.size
+                or self._table_traversal(vectors is not None)):
+            return None, None
+        s = min(self.n_entry_samples, self.size)
+        # deterministic stride sample, spread over insert order
+        ids = (np.arange(s, dtype=np.int64) * self.size // s).astype(np.int32)
+        entry_ids = torch.from_numpy(ids).to(self.device)
+        return entry_ids, vectors[entry_ids.long()]
 
     def delete_rows(self, rows):
         """Soft delete: traversal still routes through dead nodes but they
@@ -200,8 +283,13 @@ class GraphIndex(BaseIndex):
         if not self._dirty:
             return self._serving
         dev = self.device
-        vectors = codes = packed = int8 = entry_ids = entry_vecs = None
-        adj = torch.from_numpy(self._graph.adjacency()).to(dev)
+        vectors = codes = packed = int8 = None
+        dev_vecs = None
+        if self.build_mode == 'device' and self.size:
+            # the builder's buffers, cut to the live rows
+            dev_vecs, adj = self._device_views()
+        else:
+            adj = torch.from_numpy(self._graph.adjacency()).to(dev)
         if self.pq_codec is not None:
             codes = torch.from_numpy(self.pq_codec.encode(self._vectors)).to(dev)
         # traverse='vectors'/'packed'/'int8' keep the resident copy even at
@@ -209,21 +297,14 @@ class GraphIndex(BaseIndex):
         if (self.pq_codec is None or self.rerank > 0
                 or self.traverse in ('vectors', 'packed', 'int8')):
             dt = torch.bfloat16 if self.pq_codec is not None else torch.float32
-            vectors = torch.from_numpy(self._vectors).to(dev).to(dt)
+            vectors = (torch.from_numpy(self._vectors).to(dev) if dev_vecs is None
+                       else dev_vecs).to(dt)
         if self.traverse == 'packed' and self.size:
             packed = pack_neighbors(adj, vectors,
                                     need_norms=self.metric == Metric.EUCLIDEAN)
         if self.traverse == 'int8' and self.size:
             int8 = _quantize_rows_int8(torch.from_numpy(self._vectors).to(dev))
-        # vector-scored traversal only: under the coarse table scores the
-        # medoid's longer walk is the recall
-        if (self.entry_mode == 'sample' and self.size
-                and not self._table_traversal(vectors is not None)):
-            s = min(self.n_entry_samples, self.size)
-            # deterministic stride sample, spread over insert order
-            ids = (np.arange(s, dtype=np.int64) * self.size // s).astype(np.int32)
-            entry_ids = torch.from_numpy(ids).to(dev)
-            entry_vecs = vectors[entry_ids.long()]
+        entry_ids, entry_vecs = self._entries(vectors)
         self._serving = _Serving(adj, int(self._graph.medoid), vectors, codes, packed,
                                  int8, entry_ids, entry_vecs)
         self._dirty = False
@@ -325,14 +406,27 @@ class GraphIndex(BaseIndex):
         n = self.size
         if n == 0:
             return {'n': 0, 'ok': True}
-        return graph_integrity_report(self._graph.adjacency()[:n], int(self._graph.medoid),
+        return graph_integrity_report(self._adjacency_state()[:n], int(self._graph.medoid),
                                       n, dead_fraction=self.dead_fraction)
 
+    def _adjacency_state(self) -> np.ndarray:
+        """What snapshots and integrity reports read: a device-built graph's
+        full W-wide adjacency (its slack back-edges carry recall), the host
+        build's R-wide one."""
+        if self.build_mode == 'device':
+            return self._graph.raw_adjacency()
+        return self._graph.adjacency()
+
     def reset(self):
-        self._graph = VamanaGraph(
-            self.dim, max_degree=self.max_degree, alpha=self.alpha,
-            metric_ip=self.metric != Metric.EUCLIDEAN, l_build=self.l_build,
-        )
+        metric_ip = self.metric != Metric.EUCLIDEAN
+        if self.build_mode == 'device':
+            self._graph = DeviceVamanaBuilder(
+                self.dim, max_degree=self.max_degree, alpha=self.alpha, metric_ip=metric_ip,
+                l_build=self.l_build, batch_size=self.build_batch_size,
+                beam_width=self.beam_width, build_iters=self.build_iters, device=self.device)
+        else:
+            self._graph = VamanaGraph(self.dim, max_degree=self.max_degree, alpha=self.alpha,
+                                      metric_ip=metric_ip, l_build=self.l_build)
         self._vectors = np.zeros((0, self.dim), dtype=np.float32)  # host copy
         self._alive = np.zeros(0, dtype=bool)  # soft-delete bitmap
         self._serving = None
@@ -344,7 +438,7 @@ class GraphIndex(BaseIndex):
         return {
             'kind': np.array('graph'),
             'vectors': self._vectors.copy(),
-            'adjacency': self._graph.adjacency(),
+            'adjacency': self._adjacency_state(),
             'alive': self._alive.copy(),
         }
 
@@ -353,14 +447,14 @@ class GraphIndex(BaseIndex):
         v = np.asarray(state['vectors'], dtype=np.float32)
         if v.size:
             adj = np.asarray(state['adjacency'])
-            if adj.shape[1] > self.max_degree:
+            if self.build_mode == 'host' and adj.shape[1] > self.max_degree:
                 # a W-wide device-built snapshot into the R-wide builder: keep
                 # each row's R NEAREST neighbours (the slack back-edges carry
                 # connectivity that column truncation would drop)
                 adj = consolidate_adjacency(v, adj, self.max_degree,
                                             metric_ip=self.metric != Metric.EUCLIDEAN)
             self._graph.load(v, adj)
-            self._vectors = v.copy()
+            self._vectors = self._graph.vectors if self.build_mode == 'device' else v.copy()
         self._alive = (np.array(state['alive'], dtype=bool) if 'alive' in state
                        else np.ones(v.shape[0], dtype=bool))
         self._dirty = True

@@ -3,13 +3,16 @@
 A default ``AnnLite`` runs the flat index; ``n_subvectors`` adds a PQ codec
 and ``index_type='auto'`` resolves to the PQ scan, and with ``n_cells > 1``
 also a VQ coarse quantizer and the IVF-PQ index.  ``index_type='graph'``
-runs the graph index (host Vamana build, beam search on the device), scored
-with a PQ codec when ``n_subvectors`` is given.  Codec-backed indexes are
-built once the codecs are trained (``train``, or ``partial_train`` +
-``build_codebooks``, or codecs found in the model directory).  The projector
-and OPQ codecs (``n_components``, ``use_opq``) and the sharded index types
-are not ported yet (ROADMAP queue 1): asking for one raises
-``NotImplementedError``.
+runs the graph index (a host or, with ``graph_build_mode='device'``, a
+device Vamana build; beam search on the device), scored with a PQ codec when
+``n_subvectors`` is given.  ``use_opq`` makes the PQ codec an OPQ codec (a
+learned rotation before PQ); ``n_components`` puts a PCA projector in front:
+the index, the PQ codec and searches then work in the projected space, while
+the VQ coarse quantizer keeps the input space, as in the JAX package.
+Codec-backed indexes are built once the codecs are trained (``train``, or
+``partial_train`` + ``build_codebooks``, or codecs found in the model
+directory).  The sharded index types are not ported yet (ROADMAP queue 1):
+asking for one raises ``NotImplementedError``.
 
 Snapshots, codec files and ``params_hash`` match the JAX package's, so one
 ``data_path`` serves both packages: each opens the other's doc store,
@@ -25,7 +28,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .codecs import PQCodec, VQCodec
+from .codecs import OPQCodec, PQCodec, ProjectorCodec, VQCodec
 from .container import CellContainer
 from .convert import (flat_index_from_jax_state, graph_index_from_jax_state,
                       ivf_pq_index_from_jax_state, pq_scan_index_from_jax_state)
@@ -79,11 +82,9 @@ class AnnLite:
     ):
         if index_type not in INDEX_TYPES:
             raise ValueError(f'unknown index_type {index_type!r}')
-        if n_components or use_opq or index_type.startswith('sharded'):
+        if index_type.startswith('sharded'):
             raise NotImplementedError(
-                'annlite_torch does not port the projector and OPQ codecs '
-                '(n_components, use_opq) nor the sharded index types yet '
-                '(ROADMAP queue 1)')
+                'annlite_torch does not port the sharded index types yet (ROADMAP queue 1)')
         self.logger = setup_logging(verbose)
         self.n_dim = n_dim
         self.metric = parse_metric(metric)
@@ -113,7 +114,7 @@ class AnnLite:
         self.index_type = index_type
         self.use_opq = use_opq
         # graph knobs: degree bound and build beam of the Vamana graph, the
-        # search beam (ef), the build ('host' only), and the dead fraction
+        # search beam (ef), the build ('host' or 'device'), and the dead fraction
         # above which a delete compacts the index
         self.max_degree = max_degree
         self.ef_construction = ef_construction
@@ -135,14 +136,22 @@ class AnnLite:
                 f'create_if_missing=False'
             )
 
+        # the dimension the index and the PQ codec work in
+        self.index_dim = n_components if n_components else n_dim
+
         # ----- codecs (load or init) -----
+        self._projector_codec = (
+            ProjectorCodec(n_dim, n_components=n_components, device=self.device)
+            if n_components else None
+        )
         self._vq_codec = (
             VQCodec(n_cells, metric=self.metric, device=self.device)
             if n_cells > 1 else None
         )
+        pq_cls = OPQCodec if use_opq else PQCodec
         self._pq_codec = (
-            PQCodec(n_dim, n_subvectors=n_subvectors, n_clusters=n_clusters,
-                    metric=self.metric, device=self.device)
+            pq_cls(self.index_dim, n_subvectors=n_subvectors, n_clusters=n_clusters,
+                   metric=self.metric, device=self.device)
             if n_subvectors else None
         )
         self._load_codecs_if_exist()
@@ -166,12 +175,16 @@ class AnnLite:
     # ------------------------------------------------------------------
 
     @property
+    def _codecs(self):
+        return (self._projector_codec, self._vq_codec, self._pq_codec)
+
+    @property
     def _requires_training(self) -> bool:
-        return self._vq_codec is not None or self._pq_codec is not None
+        return any(c is not None for c in self._codecs)
 
     @property
     def is_trained(self) -> bool:
-        return all(c is None or c.is_trained for c in (self._vq_codec, self._pq_codec))
+        return all(c is None or c.is_trained for c in self._codecs)
 
     def _kind(self) -> str:
         if self.index_type != 'auto':
@@ -207,12 +220,12 @@ class AnnLite:
     def _new_index(self):
         kind = self._kind()
         if kind == 'graph':
-            return GraphIndex(self.n_dim, pq_codec=self._pq_codec, **self._index_kwargs())
+            return GraphIndex(self.index_dim, pq_codec=self._pq_codec, **self._index_kwargs())
         if kind == 'ivf_pq':
-            return IVFPQIndex(self.n_dim, self._pq_codec, **self._index_kwargs())
+            return IVFPQIndex(self.index_dim, self._pq_codec, **self._index_kwargs())
         if kind == 'pq_scan':
-            return PQScanIndex(self.n_dim, self._pq_codec, **self._index_kwargs())
-        return FlatIndex(self.n_dim, **self._index_kwargs())
+            return PQScanIndex(self.index_dim, self._pq_codec, **self._index_kwargs())
+        return FlatIndex(self.index_dim, **self._index_kwargs())
 
     def _build_container(self):
         self._container = CellContainer(
@@ -221,6 +234,7 @@ class AnnLite:
             metric=self.metric,
             columns=self._columns,
             data_path=self.data_path,
+            projector_codec=self._projector_codec,
         )
 
     # ------------------------------------------------------------------
@@ -244,12 +258,16 @@ class AnnLite:
                 'Please use `force_train=True` to retrain.'
             )
             return
+        if self._projector_codec:
+            self.logger.info(f'Training Projector codec with {x.shape[0]} vectors')
+            self._projector_codec.fit(x)
+        xp = self._projector_codec.encode(x) if self._projector_codec else x
         if self._vq_codec:
             self.logger.info(f'Training VQ codec (K={self.n_cells})')
             self._vq_codec.fit(x)
         if self._pq_codec:
             self.logger.info(f'Training PQ codec (m={self.n_subvectors})')
-            self._pq_codec.fit(x)
+            self._pq_codec.fit(xp)
         if auto_save:
             self.dump_model()
         if self._container is None:
@@ -261,10 +279,14 @@ class AnnLite:
         if self.is_trained and not force_train:
             self.logger.warning('The annlite has been trained; use force_train=True')
             return
+        proj = self._projector_codec
+        if proj:
+            proj.partial_fit(x)
+        xp = proj.encode(x) if proj and proj.is_trained else x
         if self._vq_codec:
             self._vq_codec.partial_fit(x)
-        if self._pq_codec:
-            self._pq_codec.partial_fit(x)
+        if self._pq_codec and xp.shape[1] == self.index_dim:
+            self._pq_codec.partial_fit(xp)
         if auto_save:
             self.dump_model()
 
@@ -413,7 +435,8 @@ class AnnLite:
         The flat and graph indexes have one, as in the JAX package.  The
         graph tracks its deletes itself and takes no mask; the flat index
         does not, so the container's alive bitmap is fused into the captured
-        mask: deleted docs never surface.  Rebuild after writes."""
+        mask: deleted docs never surface.  With ``n_components`` the queries
+        are projected on the device first.  Rebuild after writes."""
         self._check_trained()
         idx = self._container.index
         if not hasattr(idx, 'device_searcher'):
@@ -422,14 +445,19 @@ class AnnLite:
         if hasattr(idx, 'delete_rows'):
             if mask is not None:
                 raise ValueError(f'{type(idx).__name__}.device_searcher takes no mask')
-            return idx.device_searcher(limit=limit)
-        alive = self._container._alive
-        if mask is None:
-            mask = alive
+            run = idx.device_searcher(limit=limit)
         else:
-            u = np.asarray(mask[: len(alive)]).astype(bool)
-            mask = u & alive[: len(u)]
-        return idx.device_searcher(limit=limit, mask=mask)
+            alive = self._container._alive
+            if mask is None:
+                mask = alive
+            else:
+                u = np.asarray(mask[: len(alive)]).astype(bool)
+                mask = u & alive[: len(u)]
+            run = idx.device_searcher(limit=limit, mask=mask)
+        proj = self._projector_codec
+        if proj is None:
+            return run
+        return lambda query: run(proj.encode_tensor(query))
 
     def serving_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Serving closure: the device-resident searcher plus ONE row->doc-id
@@ -503,12 +531,17 @@ class AnnLite:
     def encode(self, x: np.ndarray) -> np.ndarray:
         if self._pq_codec is None:
             raise RuntimeError('PQ codec is not configured')
-        return self._pq_codec.encode(self._sanity_check(x))
+        x = self._sanity_check(x)
+        xp = self._projector_codec.encode(x) if self._projector_codec else x
+        return self._pq_codec.encode(xp)
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         if self._pq_codec is None:
             raise RuntimeError('PQ codec is not configured')
-        return self._pq_codec.decode(codes)
+        xp = self._pq_codec.decode(codes)
+        if self._projector_codec:
+            return self._projector_codec.decode(xp)
+        return xp
 
     # ------------------------------------------------------------------
     # persistence (same layout as the JAX package)
@@ -537,16 +570,21 @@ class AnnLite:
     def _load_codecs_if_exist(self):
         p = self.model_path
         try:
+            if self._projector_codec and (p / 'projector.npz').exists():
+                self._projector_codec = ProjectorCodec.load(p / 'projector.npz',
+                                                            device=self.device)
             if self._vq_codec and (p / 'vq.npz').exists():
                 self._vq_codec = VQCodec.load(p / 'vq.npz', device=self.device)
             if self._pq_codec and (p / 'pq.npz').exists():
-                self._pq_codec = PQCodec.load(p / 'pq.npz', device=self.device)
+                self._pq_codec = type(self._pq_codec).load(p / 'pq.npz', device=self.device)
         except Exception as e:  # corrupted model dir: retrain
             self.logger.warning(f'failed to load codecs from {p}: {e}')
 
     def dump_model(self):
         p = self.model_path
         p.mkdir(parents=True, exist_ok=True)
+        if self._projector_codec:
+            self._projector_codec.dump(p / 'projector.npz')
         if self._vq_codec:
             self._vq_codec.dump(p / 'vq.npz')
         if self._pq_codec:

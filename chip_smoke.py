@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``annlite_torch/csrc`` (``nvcc``, one process
-per source, all at once), then runs twelve phases, each printing one JSON
+per source, all at once), then runs thirteen phases, each printing one JSON
 line:
 
 1. ``build``: build time, the card's name and ``nvidia-smi``'s name and power
@@ -87,20 +87,36 @@ line:
    then with ``n_cells=64`` as well: train, index, self-hits, a filtered
    search, updates and deletes, encode/decode, dump and reopen;
 11. ``graph``: the JAX package's ``bench.py`` graph recipe, 131,072 x 128
-   clustered rows, a host Vamana build (R 32, l_build 64) on every host
-   thread, ef 128, beam width 8: recall@10 >= 0.95 with vector traversal,
-   >= 0.90 with PQ64 table traversal (``beam_pq``) and rerank 100 (rerank
+   clustered rows, the device Vamana build (R 32, l_build 64, W 48, beam
+   width 16): its seconds, rows/s, stages and peak device bytes, integrity
+   with >= 99.9% of rows reachable, degree <= W and no self-loops (the host
+   build of 20,000 of the rows timed beside it); ef 128, beam width 8 over
+   the W-wide graph: recall@10 >= 0.95 with vector traversal, >= 0.90 with
+   PQ64 table traversal (``beam_pq``) and rerank 100 (rerank
    0, int8 and packed traversal printed), 50% and 5% masks (the 5% one
    equals the exact masked scan), soft deletes, ``device_searcher`` against
    ``search``, latency of each traversal, the kernels one PQ search
    launches, ``beam_pq`` on this graph against the eager loop and timed at
-   Q = 64 and 1 (its bound from the iterations run), and a profile of the PQ
-   searches at batch 64 and 1 (kernel launches, the device's idle share);
+   Q = 64 and 1 (its bound from the rows the eager loop reads), a profile
+   of the PQ searches at batch 64 and 1 (kernel launches, the device's idle
+   share), and a streaming append of 16,384 rows to the synced PQ index:
+   timed, the new rows' codes patched in without a re-encode, and a
+   ``device_searcher`` built before it returning the same ids and distances
+   after it;
 12. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
    of phase 7's docs, without a codec and with ``n_subvectors=64,
    rerank=0`` (``beam_pq`` through the facade): self-hits, a filtered search,
    in-place updates, deletes, ``check_integrity``, ``serving_searcher``
-   against ``search_numpy``, dump and reopen.
+   against ``search_numpy``, dump and reopen;
+13. ``facade_codecs``: ``AnnLite(n_subvectors=64, use_opq=True, rerank=100)``
+   over phase 7's docs, the PQ scan (recall@10 >= 0.99) and a device-built
+   graph traversed with the OPQ tables (``beam_pq``, recall@10 >= 0.90),
+   OPQ's train seconds, ``fit_trace`` and reconstruction error, which must be
+   below plain PQ's; ``AnnLite(n_components=128)`` flat int8 over phase 6's
+   65,536 x 256 cosine docs (recall@10 >= 0.995 against a float32 brute
+   force in the projected space; against the unprojected one printed; the
+   fitted components and variance ratios held to a float64 numpy PCA of the
+   training rows); search latency at batch 64 and 1 for each.
 
 Bounds are the largest of bytes at the memory rate, operations at the
 peak rate for their type and, for the table-lookup kernels (K4-K9), the
@@ -1527,10 +1543,13 @@ def main() -> int:
 
     # ---------------- 11. graph search (bench.py ph_graph) ----------------
     # bench.py's _graph_corpus: 131,072 x 128 euclidean rows, 1024 centres x
-    # 2.0 plus unit noise (numpy seed 1234); a host Vamana build (R 32,
-    # l_build 64) on every host thread; ph_graph's queries (seed 77: 64
-    # corpus rows plus 0.1 noise); ef 128, beam width 8, 4096 sampled entries
-    # of which 8 seed each query.  The other traversals load the same graph.
+    # 2.0 plus unit noise (numpy seed 1234); the device Vamana build of
+    # ph_graph (R 32, l_build 64; the builder's defaults otherwise: batch
+    # 16,384, build beam width 16, slack 16, so W = 48); ph_graph's queries
+    # (seed 77: 64 corpus rows plus 0.1 noise); ef 128, beam width 8, 4096
+    # sampled entries of which 8 seed each query.  A GraphIndex hands its
+    # beam width to the builder, so the index that builds takes the builder's
+    # 16 and the searching ones, each traversal, load its W-wide graph.
     gn = 131072
     grng = np.random.default_rng(1234)
     gcent = (grng.standard_normal((1024, d2)) * 2.0).astype(np.float32)
@@ -1538,15 +1557,38 @@ def main() -> int:
     rq = np.random.default_rng(77)
     gq = (gx[rq.integers(0, gn, nq)] + 0.1 * rq.standard_normal((nq, d2))).astype(np.float32)
     gkw = dict(metric='euclidean', max_degree=32, l_build=64, ef_search=128, beam_width=8,
-               n_entry_samples=4096, entry_width=8)
+               n_entry_samples=4096, entry_width=8, build_mode='device')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    gbase = GraphIndex(d2, **gkw)
-    gbase.add_with_ids(gx, np.arange(gn))
+    gbuilt = GraphIndex(d2, **dict(gkw, beam_width=16))
+    gbuilt.add_with_ids(gx, np.arange(gn))
+    torch.cuda.synchronize()
     graph_build_s = time.perf_counter() - t0
-    graph_integrity = gbase.check_integrity()
-    if not graph_integrity['ok']:
-        fail(f'graph: the host build fails its integrity check {graph_integrity}')
-    gstate = gbase.state_arrays()
+    graph_build_peak = torch.cuda.max_memory_allocated() - mem0
+    graph_build_stats = dict(gbuilt._graph.stats)
+    graph_w = gbuilt._graph.w
+    graph_integrity = gbuilt.check_integrity()
+    if not graph_integrity['ok'] or graph_integrity['reachable_fraction'] < 0.999:
+        fail(f'graph: the device build fails its integrity check or reaches under '
+             f'99.9% of rows {graph_integrity}')
+    if graph_integrity['degree_max'] > graph_w or graph_integrity['self_loops']:
+        fail(f'graph: a degree above W = {graph_w} or a self-loop {graph_integrity}')
+    gstate = gbuilt.state_arrays()
+    del gbuilt
+    if gstate['adjacency'].shape != (gn, graph_w):
+        fail(f'graph: the snapshot adjacency is {gstate["adjacency"].shape}, not W-wide')
+    gbase = GraphIndex(d2, **gkw)
+    gbase.load_state_arrays(gstate)
+    # the host build on the first 20,000 rows, for its rows/s beside the
+    # device build's (every host thread), after a build of 64 rows that
+    # compiles the native builder at its first use
+    hkw = dict(gkw, build_mode='host')
+    GraphIndex(d2, **hkw).add_with_ids(gx[:64], np.arange(64))
+    t0 = time.perf_counter()
+    GraphIndex(d2, **hkw).add_with_ids(gx[:20000], np.arange(20000))
+    host_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     gpq = PQCodec(d2, n_subvectors=64, n_clusters=256, metric='euclidean', n_init=1)
     gpq.fit(gx[:20000], iter=15)
@@ -1624,8 +1666,10 @@ def main() -> int:
     # beam_pq on this graph, as the PQ searches call it (entry: the medoid,
     # ef 128, B 8, 32 iterations at most): held to the eager loop with the
     # plain scorer, then timed at Q = 64 and 1 beside that loop; its bound
-    # counts the tables, and per iteration each query ran B*R code rows and
-    # B adjacency rows, with B*R*M table lookups
+    # counts the tables, the adjacency rows (W wide) of the nodes expanded and
+    # the code rows of the ids scored (seeds and the valid neighbours: the
+    # kernel reads no code row for a -1 slot), with M table lookups each,
+    # all read off a counting run of the eager loop
     sv = gidx['pq_rerank0']._sync_device()
     dt_g = gpq.dist_mat(gq_t).to(dev).float().contiguous()
     ent_g = torch.full((nq, 1), sv.medoid, dtype=torch.int32, device=dev)
@@ -1640,19 +1684,39 @@ def main() -> int:
         return bm._beam_loop(sv.adj, ent_g[:nq_], 128, 8, iters_g, 128,
                              lambda c: ad._lut_pq_scores_ref(c, sv.codes, dt_))
 
+    n_g = sv.codes.shape[0]
+    read = {'adj_rows': 0, 'code_rows': 0}
+
+    def score_counted(ids, dt_):
+        read['code_rows'] += int(((ids >= 0) & (ids < n_g)).sum())
+        return ad._lut_pq_scores_ref(ids, sv.codes, dt_)
+
+    def expand_counted(safe_sel, sel_valid, dt_):
+        read['adj_rows'] += int(sel_valid.sum())
+        nbrs = torch.where(sel_valid[:, :, None], sv.adj[safe_sel], -1)
+        nbrs = nbrs.reshape(nbrs.shape[0], -1)
+        return nbrs, score_counted(nbrs, dt_)
+
     gb_d, gb_ids, gb_its = graph_beam(nq)
-    if not all(map(torch.equal, (gb_d, gb_ids), graph_beam_plain(nq))):
+    dt_c = dt_g[:nq].contiguous()
+    counted = bm._beam_loop(sv.adj, ent_g[:nq], 128, 8, iters_g, 128,
+                            lambda c: score_counted(c, dt_c),
+                            lambda s_, v_: expand_counted(s_, v_, dt_c))
+    if not all(map(torch.equal, (gb_d, gb_ids), graph_beam_plain(nq))) or \
+            not all(map(torch.equal, (gb_d, gb_ids), counted)):
         fail('beam_pq on the graph: ids or distances differ from the eager loop')
     checks_graph = [f'beam_pq on the 131,072-row graph q={nq}: ids and distances bit-equal '
                     'to the eager loop']
     gm = sv.codes.shape[1]
-    rows = float(gb_its.sum()) * 8 * 32
+    w_g = sv.adj.shape[1]
+    beam_read = {**read, 'slots_of_expanded_rows': read['adj_rows'] * w_g}
     times['beam_pq'] = (cuda_ms(lambda: graph_beam(nq)), cuda_ms(lambda: graph_beam_plain(nq), 5))
-    bounds['beam_pq'] = bound(nq * gm * 256 * 4 + rows * (gm + 4) + nq * 4 + nq * 128 * 8,
-                              rows * gm, FP32_OPS_PER_S, rows * gm)
+    bounds['beam_pq'] = bound(nq * gm * 256 * 4 + read['code_rows'] * gm
+                              + read['adj_rows'] * w_g * 4 + nq * 4 + nq * 128 * 8,
+                              read['code_rows'] * gm, FP32_OPS_PER_S, read['code_rows'] * gm)
     beam_q1_ms = cuda_ms(lambda: graph_beam(1))
     beam_q1_plain_ms = cuda_ms(lambda: graph_beam_plain(1), 5)
-    del dt_g, gb_d, gb_ids
+    del dt_g, dt_c, gb_d, gb_ids, counted
     # where a PQ search's device time goes, by operator, at batch 64 and 1
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
@@ -1686,10 +1750,40 @@ def main() -> int:
         run = gidx[name].device_searcher(limit=10)
         graph_profile[f'{name}_batch64'] = profile(run, gq_t)
         graph_profile[f'{name}_batch1'] = profile(run, gq_t[:1])
+    # a streaming append of 16,384 rows to a synced device-built index with
+    # PQ64: it patches its serving state (encodes only the new rows), and a
+    # searcher built before the append returns what it returned before (the
+    # builder never writes a buffer it handed out)
+    gapp = gidx['pq_rerank100']
+    run = gapp.device_searcher(limit=10)
+    before = [t.clone() for t in run(gq_t)]
+    xa = (gcent[np.random.default_rng(4321).integers(0, 1024, 16384)]
+          + np.random.default_rng(4322).standard_normal((16384, d2))).astype(np.float32)
+    t0 = time.perf_counter()
+    gapp.add_with_ids(xa, np.arange(gn, gn + 16384))
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    after = run(gq_t)
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        fail('graph: a device_searcher built before an append changed its results')
+    sva = gapp._serving
+    if gapp._dirty or sva.codes.shape[0] != gn + 16384 or not np.array_equal(
+            sva.codes[gn:].cpu().numpy(), gpq.encode(xa)):
+        fail('graph: the append did not patch the serving codes with the new rows only')
+    app_integrity = gapp.check_integrity()
+    if not app_integrity['ok']:
+        fail(f'graph: integrity after the append {app_integrity}')
     emit({'phase': 'graph', 'n': gn, 'dim': d2, 'max_degree': 32, 'l_build': 64,
           'ef': 128, 'beam_width': 8, 'entry_samples': 4096, 'entry_width': 8,
-          'build_s': graph_build_s, 'build_threads': os.cpu_count(),
+          'build_mode': 'device', 'build_beam_width': 16, 'build_s': graph_build_s,
+          'build_rows_per_s': gn / graph_build_s,
+          'build_stage_s': graph_build_stats, 'build_peak_device_bytes': graph_build_peak,
+          'build_w': graph_w, 'host_build_rows_20000_s': host_build_s,
+          'host_build_rows_per_s': 20000 / host_build_s, 'host_build_threads': os.cpu_count(),
           'integrity': graph_integrity, 'pq_train_s': gpq_train_s,
+          'append_16384_s': append_s, 'append_searcher_unchanged': True,
+          'append_codes_patched': True, 'append_integrity': app_integrity,
+
           'recall_at_10_vs_fp32': graph_recall,
           'recall_at_10_mask50pct_vs_masked_fp32': recall_at_10(
               gres[0.5][1], gbrute(gq, gmasks[0.5])),
@@ -1700,6 +1794,7 @@ def main() -> int:
                           for k, v in graph_lat.items() if k.endswith('_batch64_ms')},
           'pq_search_kernel_launches': pq_launches, 'profile_pq_search': graph_profile,
           'beam_pq_checks': checks_graph,
+          'beam_pq_rows_read_q64': beam_read,
           'beam_pq_ms': {'q64': times['beam_pq'][0], 'q1': beam_q1_ms},
           'beam_pq_eager_plain_ms': {'q64': times['beam_pq'][1], 'q1': beam_q1_plain_ms},
           'beam_pq_iterations_q64': {'max': int(gb_its.max()),
@@ -1707,7 +1802,7 @@ def main() -> int:
           'beam_pq_dependent_global_reads': 1 + 2 * int(gb_its.max()),
           'beam_pq_bound_ms_q64': bounds['beam_pq'][0],
           'launches': graph_counts})
-    del gidx, gbase, gstate, gres, gxd, gsq, run, sv, ent_g, gb_its
+    del gidx, gbase, gstate, gres, gxd, gsq, run, sv, ent_g, gb_its, gapp, sva, before, after
     torch.cuda.empty_cache()
 
     # ---------------- 12. the facade with the graph index ----------------
@@ -1782,6 +1877,129 @@ def main() -> int:
     emit({'phase': 'facade_graph', 'docs': nfg, 'dim': df, 'metric': 'euclidean',
           'filtered_ok': True, 'deleted_never_returned': True, 'integrity_ok': True,
           'serving_equals_search_numpy': True, 'reopen_equal': True, **facade_graph})
+
+    # ---------------- 13. the facade with the OPQ and projector codecs ----------------
+    # (a) phase 7's 100,000 x 128 euclidean docs with PQ64 and a learned OPQ
+    # rotation (trained once on 10,240 docs): the PQ scan (K4 + lane8_merge),
+    # then a device-built graph traversed with the rotated queries' tables
+    # (beam_pq), rerank 100 both; (b) phase 6's 65,536 x 256 cosine docs
+    # projected to 128 dimensions by PCA, flat int8 (K1 + lane8_merge + K3:
+    # the projected rows have D = 128, which the fused scan takes)
+    def doc_rows(ids):
+        return np.array([[int(i) for i in row] for row in ids])
+
+    def facade_codecs_path(kind, data_dir, cfg, nd, xd, queries, gt, model_from=None):
+        shutil.rmtree(data_dir, ignore_errors=True)
+        if model_from is not None:  # reuse the trained codecs of an earlier run
+            shutil.copytree(model_from, data_dir / model_from.name)
+        ann = AnnLite(data_path=data_dir, **cfg)
+        train_s = None
+        if not ann.is_trained:
+            t = time.perf_counter()
+            ann.train(xd[:10240])
+            train_s = time.perf_counter() - t
+        if kind == 'opq_graph':
+            # the facade exposes no traversal knob: score with the OPQ tables
+            ann._container.index.traverse = 'pq'
+        t = time.perf_counter()
+        for lo in range(0, nd, 16384):
+            ann.index([Doc(id=str(i), embedding=xd[i]) for i in range(lo, min(lo + 16384, nd))])
+        ingest = time.perf_counter() - t
+        _, ids = ann.search_numpy(queries, limit=10)
+        rec = None if gt is None else recall_at_10(doc_rows(ids), gt)
+        lat = {f'search_numpy_ms_batch{b}': host_ms(
+            lambda: ann.search_numpy(queries[:b], limit=10), reps=10) for b in (nq, 1)}
+        out = {'train_s': train_s, 'ingest_docs_per_s': nd / ingest, 'recall_at_10': rec,
+               **lat}
+        if kind == 'opq_graph':
+            out['integrity'] = ann.check_integrity()
+            out['traverse'] = ann._container.index.traverse
+        if kind == 'projector_flat':
+            serve = ann.serving_searcher(limit=10)
+            if serve(queries)[1] != ids:
+                fail('facade_codecs projector: serving_searcher ids differ from search_numpy')
+        codecs = (ann.model_path, ann._projector_codec, ann._pq_codec)
+        ann.close()
+        return out, ids, codecs
+
+    xfd = torch.from_numpy(xf).to(dev)
+    qfd = torch.from_numpy(qf_np).to(dev)
+    fgt = torch.sort(torch.sum(xfd * xfd, dim=1)[None, :] - 2.0 * (qfd @ xfd.T), dim=1,
+                     stable=True).indices[:, :10].cpu().numpy()
+    del xfd, qfd
+    codec_cfg = dict(n_dim=df, metric='euclidean', n_subvectors=64, use_opq=True, rerank=100)
+    codecs_out = {}
+    (sout, _, (opq_model, _, opq_codec)), scounts = drive(
+        'facade_codecs opq_scan', ['adc_block_top2', 'lane8_merge'], lambda: facade_codecs_path(
+            'opq_scan', ROOT / 'build' / 'chip_smoke_opq_scan', codec_cfg, nf, xf, qf_np, fgt))
+    codecs_out['opq_scan'] = dict(sout, launches=scounts)
+    opq_trace = list(opq_codec.fit_trace)
+    (gout, _, _), gcounts = drive(
+        'facade_codecs opq_graph', ['beam_pq'], lambda: facade_codecs_path(
+            'opq_graph', ROOT / 'build' / 'chip_smoke_opq_graph',
+            dict(codec_cfg, index_type='graph', graph_build_mode='device'), nf, xf, qf_np, fgt,
+            model_from=opq_model))
+    codecs_out['opq_graph'] = dict(gout, launches=gcounts)
+    # the rotation against plain PQ on the same training sample
+    plain = PQCodec(df, n_subvectors=64, n_clusters=256, metric='euclidean')
+    plain.fit(xf[:10240])
+    opq_mse = float(np.mean((opq_codec.decode(opq_codec.encode(xf[:10240])) - xf[:10240]) ** 2))
+    pq_mse = float(np.mean((plain.decode(plain.encode(xf[:10240])) - xf[:10240]) ** 2))
+    del plain
+    rec_scan = codecs_out['opq_scan']['recall_at_10']
+    rec_graph = codecs_out['opq_graph']['recall_at_10']
+    if rec_scan < 0.99 or rec_graph < 0.90:
+        fail(f'facade_codecs: OPQ recall@10 {rec_scan} (scan, >= 0.99) or {rec_graph} '
+             '(graph, >= 0.90)')
+    if not opq_mse < pq_mse:
+        fail(f'facade_codecs: OPQ training MSE {opq_mse} is not below plain PQ\'s {pq_mse}')
+    # (b): ground truth by float32 brute force in the projected space (the
+    # flat index's cosine over projected rows), and in the input space
+    xsm = np.random.default_rng(SEED).standard_normal((nsm, dsm), dtype=np.float32)
+    proj_cfg = dict(n_dim=dsm, metric='cosine', n_components=128)
+    (pout, pids, (_, proj, _)), pcounts = drive(
+        'facade_codecs projector_flat', ['block_top2', 'lane8_merge', 'gather_rerank'],
+        lambda: facade_codecs_path('projector_flat', ROOT / 'build' / 'chip_smoke_projector',
+                                   proj_cfg, nsm, xsm, xsm[:nq], None))
+
+    def cos_gt(rows, queries):
+        r = l2_normalize(torch.from_numpy(rows).to(dev))
+        q = l2_normalize(torch.from_numpy(queries).to(dev))
+        return torch.sort(-(q @ r.T), dim=1, stable=True).indices[:, :10].cpu().numpy()
+
+    got = doc_rows(pids)
+    pout['recall_at_10'] = recall_at_10(got, cos_gt(proj.encode(xsm), proj.encode(xsm[:nq])))
+    pout['recall_at_10_vs_unprojected'] = recall_at_10(got, cos_gt(xsm, xsm[:nq]))
+    pout['explained_variance_ratio'] = float(np.sum(proj.explained_variance_ratio))
+    # the card's fit (float32 moments, CUDA eigh, sign rule) against a float64
+    # numpy PCA of the same 10,240 training rows: the 16 leading components
+    # to |cosine| > 0.999, every component's variance ratio to 1e-4
+    xs64 = xsm[:10240].astype(np.float64)
+    ref_val, ref_vec = np.linalg.eigh(np.cov(xs64, rowvar=False))
+    ref_ratio = ref_val[::-1][:128] / np.sum(np.clip(ref_val, 0.0, None))
+    ref_comp = ref_vec[:, ::-1][:, :16].T
+    cos16 = np.abs(np.sum(proj.components[:16].astype(np.float64) * ref_comp, axis=1)) / (
+        np.linalg.norm(proj.components[:16], axis=1) * np.linalg.norm(ref_comp, axis=1))
+    ratio_err = float(np.max(np.abs(proj.explained_variance_ratio - ref_ratio)))
+    pout['vs_float64_pca'] = {'min_abs_cos_16_leading': float(cos16.min()),
+                              'max_variance_ratio_err': ratio_err}
+    del xs64
+    codecs_out['projector_flat'] = dict(pout, launches=pcounts)
+    if pout['recall_at_10'] < 0.995:
+        fail(f'facade_codecs: projector flat recall@10 {pout["recall_at_10"]} against the '
+             'projected brute force is below 0.995')
+    if cos16.min() <= 0.999 or ratio_err > 1e-4:
+        fail(f'facade_codecs: the projector differs from a float64 PCA of its training rows: '
+             f'min |cos| {cos16.min()} of the 16 leading components (> 0.999), variance '
+             f'ratio error {ratio_err} (<= 1e-4)')
+    for name in ('opq_scan', 'opq_graph', 'projector'):
+        shutil.rmtree(ROOT / 'build' / f'chip_smoke_{name}', ignore_errors=True)
+    emit({'phase': 'facade_codecs', 'opq': {'docs': nf, 'dim': df, 'metric': 'euclidean',
+                                            'n_subvectors': 64, 'fit_trace': opq_trace,
+                                            'train_mse': opq_mse, 'plain_pq_train_mse': pq_mse},
+          'projector': {'docs': nsm, 'dim': dsm, 'n_components': 128, 'metric': 'cosine'},
+          **codecs_out})
+    del xsm, proj, opq_codec
 
     # ---------------- result ----------------
     src = {'block_top2': 'annlite_torch/csrc/fused_scan.cu',

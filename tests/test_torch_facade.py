@@ -172,8 +172,8 @@ def test_params_hash_equal_jax(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'n_components': 16}, {'n_subvectors': 8, 'use_opq': True},
-    {'index_type': 'graph', 'graph_build_mode': 'device'}, {'index_type': 'sharded_pq'},
+    {'index_type': 'sharded_graph'}, {'index_type': 'sharded_pq', 'n_subvectors': 8},
+    {'index_type': 'sharded_ivf_pq', 'n_subvectors': 8}, {'index_type': 'sharded_pq'},
     {'index_type': 'sharded_flat'},
 ])
 def test_unported_configurations_raise(tmp_path, kwargs):

@@ -229,7 +229,7 @@ def test_small_and_empty_indexes():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='item 16'):
-        tg.GraphIndex(D, build_mode='device', device='cpu')
+    with pytest.raises(ValueError, match='build_mode'):
+        tg.GraphIndex(D, build_mode='gpu', device='cpu')
     with pytest.raises(ValueError):
         tg.GraphIndex(D, traverse='nope', device='cpu')

@@ -114,9 +114,10 @@ def test_knobs_reach_the_index(tmp_path):
     assert isinstance(idx, TGraph)
     assert (idx.max_degree, idx.l_build, idx.ef_search, idx.build_mode) == (20, 40, 50, 'host')
     ann.close()
-    with pytest.raises(NotImplementedError, match='item 16'):
-        TAnnLite(D, index_type='graph', graph_build_mode='device', device='cpu',
-                 data_path=tmp_path / 'd')
+    ann = TAnnLite(D, index_type='graph', graph_build_mode='device', device='cpu',
+                   data_path=tmp_path / 'd')
+    assert ann._container.index.build_mode == 'device'
+    ann.close()
     with pytest.raises(NotImplementedError):
         TAnnLite(D, index_type='sharded_graph', device='cpu', data_path=tmp_path / 's')
 
