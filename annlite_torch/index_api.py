@@ -16,7 +16,9 @@ asking for one raises ``NotImplementedError``.
 
 Snapshots, codec files and ``params_hash`` match the JAX package's, so one
 ``data_path`` serves both packages: each opens the other's doc store,
-tables, codecs and index snapshots.
+tables, codecs and index snapshots.  So do the archives of ``backup`` (local,
+or uploaded to an artifact store through `artifacts.py`): either package
+restores the other's.
 """
 import hashlib
 import json
@@ -79,7 +81,10 @@ class AnnLite:
         n_assign: int = 1,
         assign_margin: float = 0.05,
         device: Optional[Union[str, torch.device]] = None,
+        **kwargs,
     ):
+        # extra keywords are accepted and ignored, as the JAX facade does: the
+        # serving executor and DocumentArray pass user config straight in
         if index_type not in INDEX_TYPES:
             raise ValueError(f'unknown index_type {index_type!r}')
         if index_type.startswith('sharded'):
@@ -436,9 +441,12 @@ class AnnLite:
         graph tracks its deletes itself and takes no mask; the flat index
         does not, so the container's alive bitmap is fused into the captured
         mask: deleted docs never surface.  With ``n_components`` the queries
-        are projected on the device first.  Rebuild after writes."""
+        are projected on the device first.  Rebuild after writes; after
+        :meth:`restore` replaced the index, the searcher raises instead of
+        serving the old rows."""
         self._check_trained()
-        idx = self._container.index
+        container = self._container
+        idx = container.index
         if not hasattr(idx, 'device_searcher'):
             raise NotImplementedError(
                 f'{type(idx).__name__} has no device-resident searcher')
@@ -455,9 +463,14 @@ class AnnLite:
                 mask = u & alive[: len(u)]
             run = idx.device_searcher(limit=limit, mask=mask)
         proj = self._projector_codec
-        if proj is None:
-            return run
-        return lambda query: run(proj.encode_tensor(query))
+
+        def search(query):
+            if container.index is not idx:
+                raise RuntimeError('the index was replaced (restore) after this '
+                                   'searcher was taken; take a new one')
+            return run(query if proj is None else proj.encode_tensor(query))
+
+        return search
 
     def serving_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Serving closure: the device-resident searcher plus ONE row->doc-id
@@ -520,6 +533,9 @@ class AnnLite:
             ascending=ascending,
             include_metadata=include_metadata,
         )
+
+    def get_docs(self, **kwargs) -> List[Doc]:
+        return self.filter(**kwargs)
 
     def get_doc_by_id(self, doc_id: str) -> Optional[Doc]:
         return self._container.get_doc_by_id(doc_id)
@@ -734,6 +750,73 @@ class AnnLite:
         c.meta_table.execute(f'DELETE FROM {c.meta_table.name}')
         self._reset_columns()
         self._rebuild_index_from_local()
+
+    def backup(
+        self,
+        target_name: Optional[str] = None,
+        token: Optional[str] = None,
+        remote: Optional[str] = None,
+    ) -> Path:
+        """Archive the codecs, a snapshot and the doc store into
+        ``data_path/backups/<name>``, the JAX package's layout.  ``remote``:
+        an artifact-store URL ('http(s)://...') or path; the archive is also
+        uploaded there as zipped, split, typed artifacts
+        (:class:`~annlite_torch.artifacts.Uploader`), so another host, or the
+        other package, can :meth:`restore` it.  ``token`` is accepted for the
+        reference's signature and unused."""
+        self.dump_model()
+        snap = self.dump_index()
+        name = target_name or f'backup-{snap.name}'
+        dest = self.data_path / 'backups' / name
+        dest.mkdir(parents=True, exist_ok=True)
+        shutil.copytree(self.model_path, dest / self.model_path.name, dirs_exist_ok=True)
+        shutil.copytree(snap, dest / 'snapshot', dirs_exist_ok=True)
+        self._container.doc_store.dump(dest / 'docs.db')
+        if remote is not None:
+            from .artifacts import Uploader, make_transport
+
+            Uploader(make_transport(remote)).upload_directory(
+                name, dest, skip_if_exists=False
+            )
+        return dest
+
+    def restore(
+        self,
+        source_name: Optional[str] = None,
+        token: Optional[str] = None,
+        remote: Optional[str] = None,
+    ):
+        """Restore from a backup made by :meth:`backup` (by either package):
+        local, or fetched from the ``remote`` artifact store when not present
+        locally.  The index is rebuilt on this facade's device; searchers
+        taken before refuse to run afterwards.  Without ``source_name``,
+        reload the latest snapshot of ``data_path``."""
+        if source_name is None:
+            self._maybe_restore()
+            return
+        src = self.data_path / 'backups' / source_name
+        if not src.exists() and remote is not None:
+            from .artifacts import Merger, make_transport
+
+            Merger(make_transport(remote)).restore_directory(source_name, src)
+        if not src.exists():
+            raise FileNotFoundError(f'backup {source_name} not found under {src}')
+        model_dirs = list(src.glob('parameters-*'))
+        if model_dirs:
+            shutil.copytree(
+                model_dirs[0], self.data_path / model_dirs[0].name, dirs_exist_ok=True
+            )
+            self._load_codecs_if_exist()
+        if self._container is None:
+            self._build_container()
+        self._container.doc_store.load(src / 'docs.db')
+        self._restore_from_snapshot_dir_or_rebuild(src / 'snapshot')
+
+    def _restore_from_snapshot_dir_or_rebuild(self, snap: Path):
+        if snap.exists():
+            self._restore_from_snapshot(snap)
+        else:
+            self._rebuild_index_from_local()
 
     def clear(self):
         if self._container is not None:

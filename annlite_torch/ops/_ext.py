@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -65,6 +66,9 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# the serving layer launches from several threads: one builds and loads, the
+# others wait for it
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -116,12 +120,16 @@ def build() -> Dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build()[name]))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(build()[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
     return _loaded[name]
 
 

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``annlite_torch/csrc`` (``nvcc``, one process
-per source, all at once), then runs thirteen phases, each printing one JSON
+per source, all at once), then runs fourteen phases, each printing one JSON
 line:
 
 1. ``build``: build time, the card's name and ``nvidia-smi``'s name and power
@@ -116,7 +116,25 @@ line:
    65,536 x 256 cosine docs (recall@10 >= 0.995 against a float32 brute
    force in the projected space; against the unprojected one printed; the
    fitted components and variance ratios held to a float64 numpy PCA of the
-   training rows); search latency at batch 64 and 1 for each.
+   training rows); search latency at batch 64 and 1 for each;
+14. ``serving``: the serving executor ``AnnLiteIndexer`` with the settings of
+   ``deploy/config.yml`` (128 dimensions, cosine, ``index_type='auto'`` = flat
+   int8, rerank 0, shard 0 of 1) and a ``price`` column over phase 7's
+   100,000 docs: its warm-up builds the kernels on the main thread;
+   ingest in requests of 1,000 through the write buffer (docs/s); a search
+   of 64 queries equal to ``AnnLite.search_numpy``, 16 self-hits, recall@10
+   >= 0.995 against a float32 cosine brute force, a filtered search, its
+   latency at batch 64 and 1, the kernels one search launches and their
+   device time (``torch.profiler``, batch 64); 64
+   single-query requests at once through ``QueryBatcher`` (fewer than 64
+   dispatches, each result its row of the batch; wall time beside 64
+   requests one by one); updates, deletes and ``fill_embedding`` (bit for
+   bit); a backup to an ``ArtifactServer`` on loopback, uploaded whole and in
+   16 MB parts, each restored into a fresh executor on the card (the same doc
+   count, bit-equal ids and distances; seconds and archive bytes printed);
+   then, where ``aiohttp`` and ``grpc`` are installed, 64 concurrent searches
+   and a status call through the HTTP and gRPC front ends (a line says so
+   where one is absent).
 
 Bounds are the largest of bytes at the memory rate, operations at the
 peak rate for their type and, for the table-lookup kernels (K4-K9), the
@@ -1720,6 +1738,13 @@ def main() -> int:
     # where a PQ search's device time goes, by operator, at batch 64 and 1
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
+    def device_events(prof):
+        """The profile's kernels and copies on the card, each once (an aten
+        op's own device time repeats its kernels')."""
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+
     def profile(run, qv):
         run(qv)
         torch.cuda.synchronize()
@@ -1730,7 +1755,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t) * 1e3
             ka = prof.key_averages()
-            kern = [e for e in ka if e.self_device_time_total > 0]
+            kern = device_events(prof)
             ops = sorted((e for e in ka if e.key.startswith('aten::')
                           and e.device_time_total > 0), key=lambda e: -e.device_time_total)
             busy = sum(e.self_device_time_total for e in kern) / 1e3
@@ -2000,6 +2025,272 @@ def main() -> int:
           'projector': {'docs': nsm, 'dim': dsm, 'n_components': 128, 'metric': 'cosine'},
           **codecs_out})
     del xsm, proj, opq_codec
+
+    # ---------------- 14. the serving layer ----------------
+    # deploy/config.yml's executor (n_dim 128, cosine, index_type auto = flat
+    # int8, rerank 0, shard 0 of 1, a workspace under build/) with a price
+    # column, over phase 7's 100,000 docs: ingest through the write buffer,
+    # search, micro-batched search, writes, a backup to an artifact server on
+    # loopback restored into fresh executors, then the HTTP and gRPC front
+    # ends where their packages are installed (looked up before anything runs)
+    import asyncio
+    import importlib.util
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from annlite_torch.artifacts import Uploader, make_transport
+    from annlite_torch.serving import AnnLiteIndexer
+    from annlite_torch.serving.artifact_server import ArtifactServer
+    from annlite_torch.serving.batcher import QueryBatcher
+
+    serve_root = ROOT / 'build' / 'chip_smoke_serving'
+    shutil.rmtree(serve_root, ignore_errors=True)
+    serving_cfg = dict(n_dim=df, metric='cosine', index_type='auto', rerank=0,
+                       shard_id=0, shards=1, columns=[('price', float)])
+    split_mb = 16  # the archive's docs.db (~60 MB) then goes up in parts
+    front_ends = {phase: (pkg, importlib.util.find_spec(pkg) is not None)
+                  for phase, pkg in (('serving_http', 'aiohttp'), ('serving_grpc', 'grpc'))}
+    for phase, (pkg, found) in front_ends.items():
+        if not found:
+            emit({'phase': phase, 'run': False, 'reason': f'{pkg} not installed'})
+
+    def qdocs(rows, offset=0.0):
+        """Fresh query docs (a search writes its matches into them)."""
+        return [Doc(id=f'q{i}', embedding=xf[i] + offset) for i in rows]
+
+    def match_ids(docs):
+        return [[m.id for m in d.matches] for d in docs]
+
+    def match_scores(docs):
+        return [[m.score for m in d.matches] for d in docs]
+
+    def launch_counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    def search_profile(ex):
+        """The device time of one executor search at batch 64 (metadata
+        included), by ``torch.profiler``: all kernels, and each of the
+        three on the path (a measurement aid: a profiler that cannot trace
+        fails no check)."""
+        docs = qdocs(range(nq))
+        ex.search(qdocs(range(nq)), {'limit': 10})
+        torch.cuda.synchronize()
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                ex.search(docs, {'limit': 10})
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            kern = device_events(prof)
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            return {
+                'wall_ms_profiled': wall_ms, 'device_busy_ms': busy,
+                'device_idle_share': 1.0 - busy / wall_ms,
+                'kernel_launches': sum(e.count for e in kern),
+                'kernel_device_ms': {
+                    sym: sum(e.self_device_time_total for e in kern if sym in e.key) / 1e3
+                    for sym in ('block_top2_kernel', 'split_merge_kernel',
+                                'lane8_merge_kernel', 'gather_rerank_kernel')},
+                'top_device_ms': sorted(((e.key[:80], e.count, e.self_device_time_total / 1e3)
+                                         for e in kern), key=lambda r: -r[2])[:8]}
+        except Exception as e:  # noqa: BLE001
+            return {'error': repr(e)}
+
+    def serving_path():
+        out = {}
+        ex = AnnLiteIndexer(workspace=str(serve_root / 'ws'), **serving_cfg)
+        live = [ex]
+        srv = None
+        try:
+            if ex._index.device.type != 'cuda':
+                fail(f'serving: the executor serves from {ex._index.device}')
+            # 1. ingest, requests of 1,000 docs through the write buffer
+            t = time.perf_counter()
+            for lo in range(0, nf, 1000):
+                ex.index([Doc(id=str(i), embedding=xf[i], tags={'price': float(prices[i])})
+                          for i in range(lo, lo + 1000)])
+            ex.flush()
+            out['serving_ingest_docs_per_s'] = nf / (time.perf_counter() - t)
+            st = ex.status()
+            if (st['total_docs'], st['buffer_size'], st['quarantined_docs']) != (nf, 0, 0):
+                fail(f'serving: status after ingest {st}')
+            # 2. search: 64 queries at limit 10
+            before = launch_counts()
+            res = ex.search(qdocs(range(nq)), {'limit': 10})
+            out['launches_per_search'] = {k: v - before[k] for k, v in launch_counts().items()
+                                          if v != before[k]}
+            ids64 = match_ids(res)
+            if ids64 != ex._index.search_numpy(qf_np, limit=10)[1]:
+                fail('serving: executor search ids differ from AnnLite.search_numpy')
+            if [r[0] for r in ids64[:16]] != [str(i) for i in range(16)]:
+                fail('serving: a doc does not find itself first')
+            out['recall_at_10'] = recall_at_10(doc_rows(ids64), cos_gt(xf, qf_np))
+            if out['recall_at_10'] < 0.995:
+                fail(f'serving: recall@10 {out["recall_at_10"]} is below 0.995')
+            fres = ex.search(qdocs(range(16)), {'limit': 10, 'filter': {'price': {'$lt': 50.0}}})
+            if any(not d.matches or any(m.tags['price'] >= 50.0 for m in d.matches)
+                   for d in fres):
+                fail('serving: the filtered search returned a doc outside the filter')
+            # the executor's search, then the same without the matches' doc
+            # store reads, then the facade's search_numpy under it
+            out['search_ms_batch64'] = host_ms(
+                lambda: ex.search(qdocs(range(nq)), {'limit': 10}), reps=10)
+            out['search_ms_batch64_no_metadata'] = host_ms(
+                lambda: ex.search(qdocs(range(nq)), {'limit': 10, 'include_metadata': False}),
+                reps=10)
+            out['search_numpy_ms_batch64'] = host_ms(
+                lambda: ex._index.search_numpy(qf_np, limit=10), reps=10)
+            out['search_ms_batch1'] = host_ms(
+                lambda: ex.search(qdocs([0]), {'limit': 10}), reps=10)
+            out['search_batch64_profile'] = search_profile(ex)
+
+            # 3. micro-batching: 64 single-query requests at once on one loop
+            async def batched():
+                b = QueryBatcher(ex.search)
+                try:
+                    t = time.perf_counter()
+                    got = await asyncio.gather(*(b.submit(qdocs([i]), {'limit': 10})
+                                                 for i in range(nq)))
+                    return got, time.perf_counter() - t, b.n_dispatches
+                finally:
+                    await b.close()
+
+            got, wall, n_disp = asyncio.run(batched())
+            if [match_ids(g)[0] for g in got] != ids64:
+                fail('serving: a micro-batched result differs from its row of the batch')
+            if n_disp >= nq:
+                fail(f'serving: {n_disp} dispatches for {nq} requests')
+            t = time.perf_counter()
+            one = [match_ids(ex.search(qdocs([i]), {'limit': 10}))[0] for i in range(nq)]
+            out['microbatch'] = {'n_dispatches': n_disp, 'wall_ms_batched': wall * 1e3,
+                                 'wall_ms_one_by_one': (time.perf_counter() - t) * 1e3}
+            if one != ids64:
+                fail('serving: a single-query search differs from its row of the batch')
+            # 4. writes
+            upd = range(1000, 1100)
+            ex.update([Doc(id=str(i), embedding=xf[i] + 0.5, tags={'price': float(prices[i])})
+                       for i in upd])
+            if [r[0] for r in match_ids(ex.search(qdocs(upd, 0.5), {'limit': 10}))] != [
+                    str(i) for i in upd]:
+                fail('serving: an updated doc does not find itself first')
+            gone = [str(i) for i in range(2000, 2100)]
+            ex.delete({'ids': gone})
+            found = match_ids(ex.search(qdocs(range(2000, 2100)), {'limit': 10}))
+            if set(gone) & {i for row in found for i in row}:
+                fail('serving: a search returned a deleted doc')
+            filled = ex.fill_embedding([Doc(id='5'), Doc(id='1000')])
+            if (filled[0].embedding.tobytes() != xf[5].tobytes()
+                    or filled[1].embedding.tobytes() != (xf[1000] + 0.5).tobytes()):
+                fail('serving: fill_embedding differs from the stored vectors')
+            res_w = ex.search(qdocs(range(nq)), {'limit': 10})
+            # 5. backup to an artifact server and restore into fresh executors
+            srv = ArtifactServer(serve_root / 'artifacts', port=0).start()
+            t = time.perf_counter()
+            path = Path(ex.backup({'target_name': 'serving', 'remote': srv.url}))
+            out['backup_s'] = time.perf_counter() - t
+            transport = make_transport(srv.url)
+            t = time.perf_counter()
+            Uploader(transport, size_limit_mb=split_mb).upload_directory(
+                'serving_split_shard_0', path)
+            out['split_upload_s'] = time.perf_counter() - t
+            parts = [a['part'] for a in transport.list('serving_split_shard_0')
+                     if a['file_name'] == 'docs.db']
+            if len(parts) < 2 or None in parts:
+                fail(f'serving: docs.db was not split at {split_mb} MB: {parts}')
+            out['archive_bytes'] = {
+                name: sum(f.stat().st_size for f in (serve_root / 'artifacts' / name).iterdir()
+                          if not f.name.endswith('.meta.json'))
+                for name in ('serving_shard_0', 'serving_split_shard_0')}
+            out['docs_db_parts'] = len(parts)
+            restored = {}
+            for name in ('serving', 'serving_split'):
+                rx = AnnLiteIndexer(workspace=str(serve_root / f'ws_{name}'), **serving_cfg)
+                live.append(rx)
+                t = time.perf_counter()
+                rx.restore({'source_name': name, 'remote': srv.url})
+                out[f'restore_s_{name}'] = time.perf_counter() - t
+                if rx.status()['total_docs'] != ex.status()['total_docs']:
+                    fail(f'serving: restore {name}: {rx.status()["total_docs"]} docs')
+                if rx._index._container.index.device.type != 'cuda':
+                    fail(f'serving: restore {name} left the index off the card')
+                rr = rx.search(qdocs(range(nq)), {'limit': 10})
+                if match_ids(rr) != match_ids(res_w) or match_scores(rr) != match_scores(res_w):
+                    fail(f'serving: restore {name}: top-10 ids or distances differ')
+                restored[name] = rx
+            # 6. the front ends, each over a restored executor (stopping a
+            # server closes its executor)
+            ref = match_ids(res_w)
+
+            def same_ids(replies, what):
+                for i, rep in enumerate(replies):
+                    if [m['id'] for m in rep['results'][0]['matches']] != ref[i]:
+                        fail(f'serving: {what} request {i} differs from its row of the batch')
+
+            if front_ends['serving_http'][1]:
+                from annlite_torch.serving import Server
+
+                rx = restored['serving']
+                live.remove(rx)
+                server = Server(rx, port=0).start()
+                try:
+                    base = f'http://127.0.0.1:{server.port}'
+
+                    def post(i):
+                        body = json.dumps({'docs': [{'id': f'q{i}', 'embedding': xf[i].tolist()}],
+                                           'parameters': {'limit': 10}}).encode()
+                        req = urllib.request.Request(
+                            base + '/search', data=body,
+                            headers={'Content-Type': 'application/json'})
+                        with urllib.request.urlopen(req, timeout=60) as r:
+                            return json.loads(r.read())
+
+                    t = time.perf_counter()
+                    with ThreadPoolExecutor(nq) as pool:
+                        replies = list(pool.map(post, range(nq)))
+                    wall = time.perf_counter() - t
+                    same_ids(replies, 'HTTP')
+                    with urllib.request.urlopen(base + '/status', timeout=60) as r:
+                        st = json.loads(r.read())
+                    if st['total_docs'] != nf - len(gone):
+                        fail(f'serving: HTTP /status reports {st["total_docs"]} docs')
+                    out['http'] = {'wall_ms_64_concurrent': wall * 1e3, 'batcher': st['batcher']}
+                finally:
+                    server.stop()
+            if front_ends['serving_grpc'][1]:
+                from annlite_torch.serving import GrpcClient, GrpcServer
+
+                rx = restored['serving_split']
+                live.remove(rx)
+                server = GrpcServer(rx, port=0).start()
+                client = GrpcClient(server.address)
+                try:
+                    t = time.perf_counter()
+                    with ThreadPoolExecutor(nq) as pool:
+                        replies = list(pool.map(
+                            lambda i: client.search(qdocs([i]), {'limit': 10}), range(nq)))
+                    wall = time.perf_counter() - t
+                    same_ids(replies, 'gRPC')
+                    if client.status()['total_docs'] != nf - len(gone):
+                        fail('serving: gRPC Status reports the wrong doc count')
+                    out['grpc'] = {'wall_ms_64_concurrent': wall * 1e3}
+                finally:
+                    client.close()
+                    server.stop()
+        finally:
+            if srv is not None:
+                srv.stop()
+            for e in live:
+                e.close()
+        return out
+
+    t_serving = time.perf_counter()
+    sout, serving_counts = drive(
+        'serving', ['block_top2', 'lane8_merge', 'gather_rerank'], serving_path)
+    shutil.rmtree(serve_root, ignore_errors=True)
+    emit({'phase': 'serving', 'docs': nf, 'dim': df, 'metric': 'cosine', 'index_type': 'auto',
+          'rerank': 0, 'front_ends_found': {p: f for p, (_, f) in front_ends.items()},
+          'split_limit_mb': split_mb, 'phase_s': time.perf_counter() - t_serving, **sout,
+          'launches': serving_counts})
 
     # ---------------- result ----------------
     src = {'block_top2': 'annlite_torch/csrc/fused_scan.cu',

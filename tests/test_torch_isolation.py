@@ -1,5 +1,6 @@
 """annlite_torch stands alone: it imports neither JAX nor the JAX package
-(nor msgpack, which the card's machine lacks)."""
+(nor msgpack: the port writes the wire and the doc store with its own
+codec, and the card's machine is promised neither package)."""
 import ast
 import subprocess
 import sys
@@ -96,6 +97,58 @@ def test_cpu_graph_search_loads_no_jax_nor_native_library():
         print('BAD', bad, 'LIBS', libs)
         ok = not bad and len(libs) == 1 and all('/build/annlite_torch/' in p for p in libs)
         sys.exit(0 if ok else 1)
+    ''')
+    r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serving_runs_without_optional_packages():
+    """With aiohttp, grpc and yaml absent, ``annlite_torch.serving`` imports
+    and an ``AnnLiteIndexer(device='cpu')`` runs index -> flush -> search ->
+    backup (to an artifact server) -> restore; the front ends that need the
+    absent packages raise ImportError only when asked for, and neither JAX,
+    the JAX package nor msgpack is loaded."""
+    code = textwrap.dedent('''
+        import sys, tempfile
+        sys.modules['aiohttp'] = sys.modules['grpc'] = sys.modules['yaml'] = None
+        before = set(sys.modules)
+        import numpy as np
+        import annlite_torch.serving as serving
+        from annlite_torch.doc import Doc
+        from annlite_torch.serving import AnnLiteIndexer
+        from annlite_torch.serving.artifact_server import ArtifactServer
+        for name in ('Server', 'GrpcServer'):
+            try:
+                getattr(serving, name)
+                sys.exit(f'{name} imported without its package')
+            except ImportError:
+                pass
+        d = tempfile.mkdtemp()
+        x = np.random.default_rng(0).standard_normal((200, 16)).astype(np.float32)
+        srv = ArtifactServer(d + '/store', port=0).start()
+        a = AnnLiteIndexer(n_dim=16, workspace=d + '/a', device='cpu')
+        b = AnnLiteIndexer(n_dim=16, workspace=d + '/b', device='cpu')
+        try:
+            a.index([Doc(id=str(i), embedding=x[i]) for i in range(200)])
+            a.flush()
+            q = lambda: [Doc(id='q%d' % i, embedding=x[i]) for i in range(4)]
+            want = [[m.id for m in d.matches] for d in a.search(q(), {'limit': 5})]
+            assert [r[0] for r in want] == ['0', '1', '2', '3'], want
+            a.backup({'target_name': 'bk', 'remote': srv.url})
+            b.restore({'source_name': 'bk', 'remote': srv.url})
+            assert b.status()['total_docs'] == 200
+            got = [[m.id for m in d.matches] for d in b.search(q(), {'limit': 5})]
+            assert got == want, (got, want)
+        finally:
+            a.close()
+            b.close()
+            srv.stop()
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'annlite_tpu', 'msgpack'))
+        print('BAD', bad)
+        sys.exit(1 if bad else 0)
     ''')
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
