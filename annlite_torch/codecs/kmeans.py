@@ -50,6 +50,13 @@ def _onehot_sums(labels: torch.Tensor, x: torch.Tensor, k: int):
     return counts, sums
 
 
+def _centroid_update(counts, sums, centroids):
+    """The mean of each centroid's rows; a centroid with none keeps its
+    place."""
+    return torch.where(counts[..., None] > 0,
+                       sums / torch.clamp_min(counts[..., None], 1.0), centroids)
+
+
 def _lloyd_step(x, centroids, spherical: bool = False):
     """One Lloyd iteration -> ``(new_centroids, inertia [...])``; the inertia
     is that of the assignment to the centroids passed in."""
@@ -57,9 +64,7 @@ def _lloyd_step(x, centroids, spherical: bool = False):
     labels = torch.argmin(d2, dim=-1)
     k = centroids.shape[-2]
     counts, sums = _onehot_sums(labels, x, k)
-    new_centroids = torch.where(
-        counts[..., None] > 0, sums / torch.clamp_min(counts[..., None], 1.0),
-        centroids)
+    new_centroids = _centroid_update(counts, sums, centroids)
     if spherical:
         # spherical k-means (cosine coarse quantizer): project the centroids
         # back onto the unit sphere each iteration, so assignment is a pure

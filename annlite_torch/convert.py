@@ -17,6 +17,7 @@ from .index.flat import FlatIndex
 from .index.graph import GraphIndex
 from .index.ivf_pq import IVFPQIndex
 from .index.pq_scan import PQScanIndex
+from .parallel import ShardedFlatIndex, ShardedGraphIndex, ShardedIVFPQIndex, ShardedPQIndex
 
 Device = Optional[Union[str, torch.device]]
 
@@ -126,5 +127,53 @@ def graph_index_from_jax_state(state: Mapping[str, np.ndarray],
     _kind(state, 'graph')
     dim = np.asarray(state['vectors']).shape[1]
     index = GraphIndex(dim, pq_codec=pq_codec, **index_kwargs)
+    index.load_state_arrays(state)
+    return index
+
+
+def sharded_pq_index_from_jax_state(state: Mapping[str, np.ndarray], pq_codec: PQCodec,
+                                    **index_kwargs) -> ShardedPQIndex:
+    """A :class:`ShardedPQIndex` over ``pq_codec`` from a sharded PQ index's
+    ``state_arrays()`` (codes, alive; no shard count in it);
+    ``index_kwargs`` (``mesh``, ``n_devices``, ``device``) go to the
+    constructor."""
+    _kind(state, 'sharded_pq')
+    index = ShardedPQIndex(pq_codec.dim, pq_codec, **index_kwargs)
+    index.load_state_arrays(state)
+    return index
+
+
+def sharded_flat_index_from_jax_state(state: Mapping[str, np.ndarray],
+                                      **index_kwargs) -> ShardedFlatIndex:
+    """A :class:`ShardedFlatIndex` from a sharded flat index's
+    ``state_arrays()`` (vectors, alive); ``index_kwargs`` (``metric``,
+    ``mesh``, ``n_devices``, ``device``) go to the constructor."""
+    _kind(state, 'sharded_flat')
+    index = ShardedFlatIndex(np.asarray(state['vectors']).shape[1], **index_kwargs)
+    index.load_state_arrays(state)
+    return index
+
+
+def sharded_ivf_pq_index_from_jax_state(state: Mapping[str, np.ndarray], pq_codec: PQCodec,
+                                        **index_kwargs) -> ShardedIVFPQIndex:
+    """A :class:`ShardedIVFPQIndex` over ``pq_codec`` from a sharded IVF-PQ
+    index's ``state_arrays()`` (the blocked store, and the slot-major rerank
+    vectors, which need ``rerank > 0``)."""
+    _kind(state, 'sharded_ivf_pq')
+    index = ShardedIVFPQIndex(pq_codec.dim, pq_codec, **index_kwargs)
+    index.load_state_arrays(state)
+    return index
+
+
+def sharded_graph_index_from_jax_state(state: Mapping[str, np.ndarray],
+                                       pq_codec: Optional[PQCodec] = None,
+                                       **index_kwargs) -> ShardedGraphIndex:
+    """A :class:`ShardedGraphIndex` from a sharded graph index's
+    ``state_arrays()`` (per-shard adjacency and sizes, global vectors,
+    alive).  Its mesh must have the snapshot's shard count: the index raises
+    otherwise."""
+    _kind(state, 'sharded_graph')
+    dim = np.asarray(state['vectors']).shape[1]
+    index = ShardedGraphIndex(dim, pq_codec=pq_codec, **index_kwargs)
     index.load_state_arrays(state)
     return index

@@ -78,7 +78,10 @@ class IVFPQIndex(BaseIndex):
         """``cells`` may be ``[n]`` (single assignment) or ``[n, a]`` with
         -1 pads (soft assignment: the row's codes are stored once per
         listed cell; search dedups)."""
-        x = self._prep(x)
+        self._add_prepped(self._prep(x), ids, cells, codes)
+
+    def _add_prepped(self, x, ids, cells, codes):
+        """``add_with_ids`` of rows already through ``_prep``."""
         if cells is None:
             cells = np.zeros(len(x), dtype=np.int32)
         if codes is None:

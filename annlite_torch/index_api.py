@@ -11,8 +11,9 @@ the index, the PQ codec and searches then work in the projected space, while
 the VQ coarse quantizer keeps the input space, as in the JAX package.
 Codec-backed indexes are built once the codecs are trained (``train``, or
 ``partial_train`` + ``build_codebooks``, or codecs found in the model
-directory).  The sharded index types are not ported yet (ROADMAP queue 1):
-asking for one raises ``NotImplementedError``.
+directory).  The ``sharded_*`` index types (`parallel/`) shard the rows
+over ``make_mesh``'s default mesh on ``device``: one shard per card, or
+:data:`~annlite_torch.parallel.mesh.CPU_SHARDS` virtual shards on the CPU.
 
 Snapshots, codec files and ``params_hash`` match the JAX package's, so one
 ``data_path`` serves both packages: each opens the other's doc store,
@@ -33,7 +34,9 @@ import torch
 from .codecs import OPQCodec, PQCodec, ProjectorCodec, VQCodec
 from .container import CellContainer
 from .convert import (flat_index_from_jax_state, graph_index_from_jax_state,
-                      ivf_pq_index_from_jax_state, pq_scan_index_from_jax_state)
+                      ivf_pq_index_from_jax_state, pq_scan_index_from_jax_state,
+                      sharded_flat_index_from_jax_state, sharded_graph_index_from_jax_state,
+                      sharded_ivf_pq_index_from_jax_state, sharded_pq_index_from_jax_state)
 from .device import resolve_device
 from .doc import Doc, docs_to_embeddings
 from .enums import ExpandMode, Metric, parse_metric
@@ -43,6 +46,7 @@ from .index.graph import GraphIndex
 from .index.ivf_pq import IVFPQIndex
 from .index.pq_scan import PQScanIndex
 from .math import cdist, top_k
+from .parallel import ShardedFlatIndex, ShardedGraphIndex, ShardedIVFPQIndex, ShardedPQIndex
 
 MAX_TRAINING_DATA_SIZE = 10240
 INDEX_TYPES = ('auto', 'flat', 'pq_scan', 'graph', 'ivf_pq', 'sharded_pq',
@@ -87,9 +91,6 @@ class AnnLite:
         # serving executor and DocumentArray pass user config straight in
         if index_type not in INDEX_TYPES:
             raise ValueError(f'unknown index_type {index_type!r}')
-        if index_type.startswith('sharded'):
-            raise NotImplementedError(
-                'annlite_torch does not port the sharded index types yet (ROADMAP queue 1)')
         self.logger = setup_logging(verbose)
         self.n_dim = n_dim
         self.metric = parse_metric(metric)
@@ -207,15 +208,20 @@ class AnnLite:
         """Constructor arguments of the index of this configuration (all but
         the codec)."""
         kind = self._kind()
-        if kind in ('pq_scan', 'ivf_pq') and self._pq_codec is None:
+        if (kind in ('pq_scan', 'ivf_pq', 'sharded_pq', 'sharded_ivf_pq')
+                and self._pq_codec is None):
             raise ValueError(f'index_type={kind} requires n_subvectors')
-        if kind == 'graph':
+        if kind in ('graph', 'sharded_graph'):
             return dict(metric=self.metric, max_degree=self.max_degree,
                         l_build=self.ef_construction, ef_search=self.ef_search,
                         rerank=self.rerank, build_mode=self.graph_build_mode,
                         device=self.device)
-        if kind == 'ivf_pq':
+        if kind in ('ivf_pq', 'sharded_ivf_pq'):
             return dict(rerank=self.rerank, device=self.device)
+        if kind == 'sharded_pq':
+            return dict(device=self.device)
+        if kind == 'sharded_flat':
+            return dict(metric=self.metric, device=self.device)
         if kind == 'pq_scan':
             return dict(exact_topk=self.exact_topk, rerank=self.rerank,
                         device=self.device, **self._grow_kwargs())
@@ -224,13 +230,16 @@ class AnnLite:
 
     def _new_index(self):
         kind = self._kind()
-        if kind == 'graph':
-            return GraphIndex(self.index_dim, pq_codec=self._pq_codec, **self._index_kwargs())
-        if kind == 'ivf_pq':
-            return IVFPQIndex(self.index_dim, self._pq_codec, **self._index_kwargs())
-        if kind == 'pq_scan':
-            return PQScanIndex(self.index_dim, self._pq_codec, **self._index_kwargs())
-        return FlatIndex(self.index_dim, **self._index_kwargs())
+        kw = self._index_kwargs()
+        if kind in ('graph', 'sharded_graph'):
+            cls = GraphIndex if kind == 'graph' else ShardedGraphIndex
+            return cls(self.index_dim, pq_codec=self._pq_codec, **kw)
+        codec_indexes = {'ivf_pq': IVFPQIndex, 'pq_scan': PQScanIndex,
+                         'sharded_pq': ShardedPQIndex, 'sharded_ivf_pq': ShardedIVFPQIndex}
+        if kind in codec_indexes:
+            return codec_indexes[kind](self.index_dim, self._pq_codec, **kw)
+        cls = ShardedFlatIndex if kind == 'sharded_flat' else FlatIndex
+        return cls(self.index_dim, **kw)
 
     def _build_container(self):
         self._container = CellContainer(
@@ -671,6 +680,17 @@ class AnnLite:
         if kind == 'ivf_pq':
             return ivf_pq_index_from_jax_state(state, self._pq_codec,
                                                **self._index_kwargs())
+        if kind == 'sharded_pq':
+            return sharded_pq_index_from_jax_state(state, self._pq_codec,
+                                                   **self._index_kwargs())
+        if kind == 'sharded_ivf_pq':
+            return sharded_ivf_pq_index_from_jax_state(state, self._pq_codec,
+                                                       **self._index_kwargs())
+        if kind == 'sharded_graph':
+            return sharded_graph_index_from_jax_state(state, self._pq_codec,
+                                                      **self._index_kwargs())
+        if kind == 'sharded_flat':
+            return sharded_flat_index_from_jax_state(state, **self._index_kwargs())
         return flat_index_from_jax_state(state, **self._index_kwargs())
 
     def _restore_from_snapshot(self, snap: Path):

@@ -177,8 +177,24 @@ def test_params_hash_equal_jax(tmp_path):
     {'index_type': 'sharded_flat'},
 ])
 def test_unported_configurations_raise(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TAnnLite(D, data_path=tmp_path, device='cpu', **kwargs)
+    """The sharded index types, once refused by the port, now do what the
+    JAX facade does with the same keywords: construct (the codec-less kinds
+    build their index at once), or raise the same ValueError."""
+    try:
+        j = JAnnLite(D, data_path=tmp_path / 'j', **kwargs)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=f'^{e}$'):
+            TAnnLite(D, data_path=tmp_path / 't', device='cpu', **kwargs)
+        return
+    t = TAnnLite(D, data_path=tmp_path / 't', device='cpu', **kwargs)
+    assert t.is_trained == j.is_trained
+    if j._container is None:
+        assert t._container is None
+    else:
+        assert type(t._container.index).__name__ == type(j._container.index).__name__
+        assert t._container.index.n_shards == j._container.index.n_shards
+    t.close()
+    j.close()
 
 
 def test_read_only_and_dim_checks(tmp_path):

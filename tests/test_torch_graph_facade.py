@@ -118,8 +118,15 @@ def test_knobs_reach_the_index(tmp_path):
                    data_path=tmp_path / 'd')
     assert ann._container.index.build_mode == 'device'
     ann.close()
-    with pytest.raises(NotImplementedError):
-        TAnnLite(D, index_type='sharded_graph', device='cpu', data_path=tmp_path / 's')
+    # the sharded graph takes the same knobs (one sub-graph per CPU shard)
+    ann = TAnnLite(D, metric='euclidean', index_type='sharded_graph', device='cpu',
+                   max_degree=20, ef_construction=40, ef_search=50,
+                   graph_build_mode='device', data_path=tmp_path / 's')
+    idx = ann._container.index
+    assert type(idx).__name__ == 'ShardedGraphIndex'
+    assert (idx.max_degree, idx.l_build, idx.ef_search, idx.build_mode, idx.n_shards) == (
+        20, 40, 50, 'device', 8)
+    ann.close()
 
 
 @pytest.mark.parametrize('kw', CONFIGS, ids=['vectors', 'pq_rerank0'])
