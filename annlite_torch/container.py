@@ -30,6 +30,7 @@ from .enums import Metric
 from .filter import Filter
 from .index.base import BaseIndex
 from .ops import BIG
+from .profile import span
 from .storage.kv import DocStorage
 from .storage.table import CellTable, MetaTable
 
@@ -118,15 +119,18 @@ class CellContainer:
         tag_rows = [d.tags for d in docs]
         doc_ids = [d.id for d in docs]
         with self._lock:
-            rows = self.cell_table.insert(doc_ids, cells, tag_rows)
-            if getattr(self.index, 'wants_cells', False):
-                self.index.add_with_ids(
-                    self._project(data), np.asarray(rows),
-                    cells=cells_multi if cells_multi is not None else cells,
-                )
-            else:
-                self.index.add_with_ids(self._project(data), np.asarray(rows))
-            self.meta_table.bulk_add_address(doc_ids, cells, rows)
+            with span('annlite.ingest.store'):
+                rows = self.cell_table.insert(doc_ids, cells, tag_rows)
+            with span('annlite.ingest.index'):
+                if getattr(self.index, 'wants_cells', False):
+                    self.index.add_with_ids(
+                        self._project(data), np.asarray(rows),
+                        cells=cells_multi if cells_multi is not None else cells,
+                    )
+                else:
+                    self.index.add_with_ids(self._project(data), np.asarray(rows))
+            with span('annlite.ingest.store'):
+                self.meta_table.bulk_add_address(doc_ids, cells, rows)
             self._grow_columns(max(rows) + 1)
             r = np.asarray(rows)
             self._alive[r] = True
@@ -137,7 +141,8 @@ class CellContainer:
                 default = '' if col.dtype == object else 0
                 col[r] = [default if v is None else v for v in vals]
         if not only_index:
-            self.doc_store.insert(docs)
+            with span('annlite.ingest.store'):
+                self.doc_store.insert(docs)
         return rows
 
     def update(
@@ -273,7 +278,8 @@ class CellContainer:
             matches = []
             for doc_id, dist in zip(q_ids, q_dists):
                 if include_metadata:
-                    got = self.doc_store.get(doc_id)
+                    with span('annlite.storage.docs'):
+                        got = self.doc_store.get(doc_id)
                     m = got[0] if got else Doc(id=doc_id)
                 else:
                     m = Doc(id=doc_id)
@@ -294,16 +300,20 @@ class CellContainer:
         behaviour at `container.py:130-144`).  ``cells``: probed IVF cells
         (used by cell-aware indexes, ignored otherwise)."""
         query = np.asarray(query, dtype=np.float32)
-        mask = self._build_mask(filter)
+        with span('annlite.filter'):
+            mask = self._build_mask(filter)
         q = self._project(query)
-        if cells is not None and getattr(self.index, 'wants_cells', False):
-            d, idx = self.index.search(q, limit=limit, mask=mask, cells=cells)
-        else:
-            d, idx = self.index.search(q, limit=limit, mask=mask)
+        with span('annlite.index'):
+            if cells is not None and getattr(self.index, 'wants_cells', False):
+                d, idx = self.index.search(q, limit=limit, mask=mask, cells=cells)
+            else:
+                d, idx = self.index.search(q, limit=limit, mask=mask)
         # one batched row->doc-id lookup for ALL queries' candidates (a
         # per-row SELECT loop here dominated facade serving latency)
         valid = d < _SCORE_MISSING
-        flat_ids = self.cell_table.get_docids_by_rows(idx[valid].tolist())
+        rows = idx[valid].tolist()
+        with span('annlite.storage.idmap'):
+            flat_ids = self.cell_table.get_docids_by_rows(rows)
         all_dists, all_ids, at = [], [], 0
         for qi in range(d.shape[0]):
             n = int(valid[qi].sum())

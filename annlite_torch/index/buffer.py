@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..enums import ExpandMode
+from ..profile import count, wait
 
 
 def _round_up(x: int, m: int) -> int:
@@ -148,13 +149,16 @@ class DeviceBuffer:
                                        dtype=self.device_dtype, device=self.device)
             self._device_cap = need_cap
             self._dirty = set(range(need_cap // self.chunk))
-        for c in sorted(self._dirty):
-            start = c * self.chunk
-            if start >= self._device_cap:
-                continue
-            end = min(start + self.chunk, self.capacity)
-            vals = np.ascontiguousarray(self._host[self._rows(start, end)])
-            self._device[self._rows(start, end)].copy_(torch.from_numpy(vals))
+        if self._dirty:
+            with wait():  # copies from pageable memory block the host
+                for c in sorted(self._dirty):
+                    start = c * self.chunk
+                    if start >= self._device_cap:
+                        continue
+                    end = min(start + self.chunk, self.capacity)
+                    vals = np.ascontiguousarray(self._host[self._rows(start, end)])
+                    count('h2d_bytes', vals.nbytes)
+                    self._device[self._rows(start, end)].copy_(torch.from_numpy(vals))
         self._dirty.clear()
         return self._device
 

@@ -32,7 +32,6 @@ Differences from the JAX module, none of which changes a result:
   budget of the defaults (d 128, beam 16, W 48), not with ``dim`` alone: its
   gather is ``[chunk, B * W, d]``.
 """
-import time
 from typing import Optional, Union
 
 import numpy as np
@@ -44,6 +43,7 @@ from ..ops import BIG
 from ..ops.beam import _resolve_iters, beam_search_vectors_bounded
 from ..ops.prune import robust_prune_batch
 from ..ops.topk import topk
+from ..profile import span
 
 GROW_CHUNK = 1 << 17  # capacity growth quantum
 PAD_Q = 16384         # query chunk of the pools stage at the default widths
@@ -162,7 +162,6 @@ class DeviceVamanaBuilder:
         self.device = resolve_device(device)
         self.n = 0
         self.medoid = 0
-        self.stats: dict = {}  # seconds per stage, summed over calls
         self._sum = np.zeros(dim, dtype=np.float64)  # running centroid
         self._vecs_host = np.zeros((0, dim), dtype=np.float32)  # capacity rows
         self._adj_host = np.zeros((0, self.w), dtype=np.int32)  # capacity rows
@@ -321,50 +320,45 @@ class DeviceVamanaBuilder:
 
     # ---------------- insert ----------------
 
-    def _tick(self, key: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        self.stats[key] = self.stats.get(key, 0.0) + (t1 - t0)
-        return t1
-
     def add(self, x: np.ndarray):
+        """Insert rows ``x`` in batches; each stage of each batch is a span
+        ``annlite.build.<stage>`` of the port's tracer (`profile.py`)."""
         x = np.ascontiguousarray(x, dtype=np.float32).reshape(-1, self.dim)
         for s in range(0, len(x), self.batch_size):
             self._add_batch(x[s: s + self.batch_size])
-        t = time.perf_counter()
-        self._repair_reachability()
-        self._tick('repair', t)
+        with span('annlite.build.repair'):
+            self._repair_reachability()
 
     def _add_batch(self, x: np.ndarray):
         p = len(x)
         if p == 0:
             return
-        t = time.perf_counter()
-        base = self.n
-        self._ensure_capacity(p)
-        self._vecs_host[base: base + p] = x
-        self._write_vecs(slice(base, base + p), x)
-        self._sum += x.sum(axis=0, dtype=np.float64)
-        t = self._tick('upload', t)
+        with span('annlite.build.upload'):
+            base = self.n
+            self._ensure_capacity(p)
+            self._vecs_host[base: base + p] = x
+            self._write_vecs(slice(base, base + p), x)
+            self._sum += x.sum(axis=0, dtype=np.float64)
 
         # pools: intra-batch exact + graph beam (once a graph exists)
-        pools = [self._intra_pools(x, base)]
-        t = self._tick('intra', t)
+        with span('annlite.build.intra'):
+            pools = [self._intra_pools(x, base)]
         if base > 0:
-            pools.append(self._graph_pools(x))
-            t = self._tick('pools', t)
-        pool_ids = np.concatenate(pools, axis=1)
+            with span('annlite.build.pools'):
+                pools.append(self._graph_pools(x))
 
-        new_ids = np.arange(base, base + p, dtype=np.int32)
-        out = self._device_prune(new_ids, pool_ids)  # [P, R]
-        t = self._tick('prune', t)
+        with span('annlite.build.prune'):
+            pool_ids = np.concatenate(pools, axis=1)
+            new_ids = np.arange(base, base + p, dtype=np.int32)
+            out = self._device_prune(new_ids, pool_ids)  # [P, R]
         self.n = base + p
         self._adj_host[new_ids, : self.r] = out
 
-        touched = self._apply_back_edges(new_ids, out, fresh_from=base)
-        t = self._tick('backedges', t)
-        self._update_medoid()
-        self._push_rows(np.concatenate([new_ids, touched]))
-        self._tick('push', t)
+        with span('annlite.build.backedges'):
+            touched = self._apply_back_edges(new_ids, out, fresh_from=base)
+        with span('annlite.build.push'):
+            self._update_medoid()
+            self._push_rows(np.concatenate([new_ids, touched]))
 
     def update(self, ids: np.ndarray, x: np.ndarray):
         """In-place point update (`csrc/vamana.cpp` ``vamana_update``):

@@ -24,6 +24,7 @@ from ..math import dot_f32, l2_normalize
 from ..ops import BIG
 from ..ops.scan import quantize_rows_int4, quantize_rows_int8, scan_topk
 from ..ops.topk import topk
+from ..profile import span, upload, wait
 from .base import BaseIndex
 from .buffer import DeviceBuffer
 
@@ -114,13 +115,19 @@ class FlatIndex(BaseIndex):
             m[: self.size] = 1
         else:
             m[: self.size] = np.asarray(mask[: self.size], dtype=np.int8)
-        return torch.from_numpy(m).to(self.device)
+        return upload(m, self.device)
 
     def search(self, query: np.ndarray, limit: int = 10, mask: Optional[np.ndarray] = None):
-        # the searcher normalizes cosine queries itself
         q = np.asarray(query, dtype=np.float32).reshape(-1, self.dim)
-        d, idx = self.device_searcher(limit=limit, mask=mask)(q)
-        return d.cpu().numpy(), idx.cpu().numpy()
+        with span('annlite.index.prep'):
+            scan = self._scanner(limit, mask)
+            q = upload(q, self.device)
+            if self.metric == Metric.COSINE:
+                q = l2_normalize(q)
+        with span('annlite.index.dispatch'):
+            d, idx = scan(q)
+        with wait():
+            return d.cpu().numpy(), idx.cpu().numpy()
 
     def device_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Device-resident search callable: ``query [Q, D] float32 (a tensor
@@ -128,6 +135,19 @@ class FlatIndex(BaseIndex):
         (dists [Q, limit], rows [Q, limit])`` as tensors on the device,
         without host transfers of the corpus.  Captures the current buffers
         and mask — rebuild after writes."""
+        scan = self._scanner(limit, mask)
+        cosine = self.metric == Metric.COSINE
+        device = self.device
+
+        def run(query):
+            q = torch.as_tensor(query, dtype=torch.float32, device=device)
+            return scan(l2_normalize(q) if cosine else q)
+
+        return run
+
+    def _scanner(self, limit: int, mask: Optional[np.ndarray]):
+        """The scan over the current buffers and ``mask``: ``q [Q, D]`` on
+        the device, normalized for cosine -> ``(dists, rows)``."""
         x = self._buf.device_view()
         norms = self._norms.device_view()
         m = self._device_mask(x.shape[0], mask)
@@ -137,12 +157,8 @@ class FlatIndex(BaseIndex):
         if mode != 'exact':
             scan = self._scan_buf.device_view()
             scale = self._scale.device_view() if self._scale is not None else None
-        device = self.device
 
-        def run(query):
-            q = torch.as_tensor(query, dtype=torch.float32, device=device)
-            if metric == Metric.COSINE:
-                q = l2_normalize(q)
+        def run(q):
             if mode == 'exact':
                 return _flat_search(q, x, norms, m, k, int(metric))
             return scan_topk(q, scan, scale, norms, m, k, metric, x_f32=x,

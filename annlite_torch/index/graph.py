@@ -38,6 +38,7 @@ from ..ops import BIG
 from ..ops.beam import (beam_search_int8, beam_search_packed, beam_search_pq,
                         beam_search_vectors, pack_neighbors)
 from ..ops.topk import topk
+from ..profile import span, upload, wait
 from .base import BaseIndex
 from .device_build import DeviceVamanaBuilder
 from .vamana_lib import VamanaGraph
@@ -253,7 +254,7 @@ class GraphIndex(BaseIndex):
         s = min(self.n_entry_samples, self.size)
         # deterministic stride sample, spread over insert order
         ids = (np.arange(s, dtype=np.int64) * self.size // s).astype(np.int32)
-        entry_ids = torch.from_numpy(ids).to(self.device)
+        entry_ids = upload(ids, self.device)
         return entry_ids, vectors[entry_ids.long()]
 
     def delete_rows(self, rows):
@@ -289,21 +290,20 @@ class GraphIndex(BaseIndex):
             # the builder's buffers, cut to the live rows
             dev_vecs, adj = self._device_views()
         else:
-            adj = torch.from_numpy(self._graph.adjacency()).to(dev)
+            adj = upload(self._graph.adjacency(), dev)
         if self.pq_codec is not None:
-            codes = torch.from_numpy(self.pq_codec.encode(self._vectors)).to(dev)
+            codes = upload(self.pq_codec.encode(self._vectors), dev)
         # traverse='vectors'/'packed'/'int8' keep the resident copy even at
         # rerank=0: bf16 with a codec, float32 without
         if (self.pq_codec is None or self.rerank > 0
                 or self.traverse in ('vectors', 'packed', 'int8')):
             dt = torch.bfloat16 if self.pq_codec is not None else torch.float32
-            vectors = (torch.from_numpy(self._vectors).to(dev) if dev_vecs is None
-                       else dev_vecs).to(dt)
+            vectors = (upload(self._vectors, dev) if dev_vecs is None else dev_vecs).to(dt)
         if self.traverse == 'packed' and self.size:
             packed = pack_neighbors(adj, vectors,
                                     need_norms=self.metric == Metric.EUCLIDEAN)
         if self.traverse == 'int8' and self.size:
-            int8 = _quantize_rows_int8(torch.from_numpy(self._vectors).to(dev))
+            int8 = _quantize_rows_int8(upload(self._vectors, dev))
         entry_ids, entry_vecs = self._entries(vectors)
         self._serving = _Serving(adj, int(self._graph.medoid), vectors, codes, packed,
                                  int8, entry_ids, entry_vecs)
@@ -357,27 +357,29 @@ class GraphIndex(BaseIndex):
         if self.size == 0:
             nq = len(np.atleast_2d(query))
             return (np.zeros((nq, 0), dtype=np.float32), np.zeros((nq, 0), dtype=np.int64))
-        query = self._prep(query)
-        s = self._sync_device()
-        if self.n_deleted:
-            # dead rows behave like filtered rows: excluded at selection,
-            # but traversal distances stay real so routes through them hold
-            alive = self._alive
-            mask = alive if mask is None else (
-                np.asarray(mask, dtype=bool)[: len(alive)] & alive)
-        q = torch.from_numpy(query).to(self.device)
-        mask_t = (None if mask is None
-                  else torch.from_numpy(np.asarray(mask, dtype=bool)).to(self.device))
-        if (mask is not None and s.vectors is not None
-                and float(np.mean(mask)) < self.filter_fallback_selectivity):
-            # selective predicate: traversal would mostly visit non-passing
-            # nodes — a masked exact scan instead
-            d, ids = _masked_exact_scan(s.vectors, q, mask_t,
-                                        self.metric == Metric.EUCLIDEAN,
-                                        min(limit, self.size))
-        else:
-            d, ids = self._search_device(s, q, limit, mask_t)
-        return d.cpu().numpy(), ids.cpu().numpy()
+        with span('annlite.index.prep'):
+            query = self._prep(query)
+            s = self._sync_device()
+            if self.n_deleted:
+                # dead rows behave like filtered rows: excluded at selection,
+                # but traversal distances stay real so routes through them hold
+                alive = self._alive
+                mask = alive if mask is None else (
+                    np.asarray(mask, dtype=bool)[: len(alive)] & alive)
+            q = upload(query, self.device)
+            mask_t = None if mask is None else upload(np.asarray(mask, dtype=bool), self.device)
+        with span('annlite.index.dispatch'):
+            if (mask is not None and s.vectors is not None
+                    and float(np.mean(mask)) < self.filter_fallback_selectivity):
+                # selective predicate: traversal would mostly visit non-passing
+                # nodes — a masked exact scan instead
+                d, ids = _masked_exact_scan(s.vectors, q, mask_t,
+                                            self.metric == Metric.EUCLIDEAN,
+                                            min(limit, self.size))
+            else:
+                d, ids = self._search_device(s, q, limit, mask_t)
+        with wait():
+            return d.cpu().numpy(), ids.cpu().numpy()
 
     def device_searcher(self, limit: int = 10):
         """Device-resident search callable: ``query [Q, D] float32 (a tensor

@@ -47,6 +47,7 @@ from .index.ivf_pq import IVFPQIndex
 from .index.pq_scan import PQScanIndex
 from .math import cdist, top_k
 from .parallel import ShardedFlatIndex, ShardedGraphIndex, ShardedIVFPQIndex, ShardedPQIndex
+from .profile import span
 
 MAX_TRAINING_DATA_SIZE = 10240
 INDEX_TYPES = ('auto', 'flat', 'pq_scan', 'graph', 'ivf_pq', 'sharded_pq',
@@ -342,9 +343,10 @@ class AnnLite:
         return np.asarray(self._vq_codec.encode(x)).reshape(-1)
 
     def index(self, docs: List[Doc]):
-        self._check_writable()
-        x = self._sanity_check(docs_to_embeddings(docs))
-        self._container.insert(x, self._cells(x), docs)
+        with span('annlite.ingest'):
+            self._check_writable()
+            x = self._sanity_check(docs_to_embeddings(docs))
+            self._container.insert(x, self._cells(x), docs)
 
     def update(
         self,
@@ -405,15 +407,16 @@ class AnnLite:
         include_metadata: bool = True,
     ):
         """Attach ``matches`` (with scores) to each query doc."""
-        self._check_trained()
-        x = docs_to_embeddings(docs)
-        match_docs, _, _ = self._container.search_cells(
-            x, cells=self._cell_selection(x), filter=filter, limit=limit,
-            include_metadata=include_metadata,
-        )
-        for doc, matches in zip(docs, match_docs):
-            doc.matches = matches
-        return docs
+        with span('annlite.search'):
+            self._check_trained()
+            x = docs_to_embeddings(docs)
+            match_docs, _, _ = self._container.search_cells(
+                x, cells=self._cell_selection(x), filter=filter, limit=limit,
+                include_metadata=include_metadata,
+            )
+            for doc, matches in zip(docs, match_docs):
+                doc.matches = matches
+            return docs
 
     def search_by_vectors(
         self,
@@ -422,24 +425,26 @@ class AnnLite:
         limit: int = 10,
         include_metadata: bool = False,
     ):
-        self._check_trained()
-        query_np = self._sanity_check(query_np)
-        match_docs, _, _ = self._container.search_cells(
-            query_np, cells=self._cell_selection(query_np), filter=filter,
-            limit=limit, include_metadata=include_metadata,
-        )
-        return match_docs
+        with span('annlite.search'):
+            self._check_trained()
+            query_np = self._sanity_check(query_np)
+            match_docs, _, _ = self._container.search_cells(
+                query_np, cells=self._cell_selection(query_np), filter=filter,
+                limit=limit, include_metadata=include_metadata,
+            )
+            return match_docs
 
     def search_numpy(
         self, query_np: np.ndarray, filter: Optional[Dict] = None, limit: int = 10
     ):
         """Returns (dists, doc_ids) ragged lists."""
-        self._check_trained()
-        query_np = self._sanity_check(query_np)
-        return self._container.search_numpy(
-            query_np, filter=filter, limit=limit,
-            cells=self._cell_selection(query_np),
-        )
+        with span('annlite.search'):
+            self._check_trained()
+            query_np = self._sanity_check(query_np)
+            return self._container.search_numpy(
+                query_np, filter=filter, limit=limit,
+                cells=self._cell_selection(query_np),
+            )
 
     def device_searcher(self, limit: int = 10, mask: Optional[np.ndarray] = None):
         """Device-resident searcher over the index: ``query [Q, D] float32 ->

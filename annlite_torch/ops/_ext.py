@@ -21,6 +21,8 @@ from typing import Dict
 
 import torch
 
+from ..profile import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'annlite_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -97,25 +99,33 @@ def build() -> Dict[str, Path]:
     libs = {name: out / f'lib{name}.so' for name in SIGNATURES}
     todo = {name: p for name, p in libs.items() if not p.exists()}
     if todo:
-        nvcc = _nvcc()
-        procs = {}
-        for name, lib in todo.items():
-            tmp = Path(tempfile.mkstemp(dir=out, suffix='.so.tmp')[1])
-            cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
-            procs[name] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        failed = []
-        for name, (tmp, proc) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f'{name}.cu:\n{log}')
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, todo[name])
-        if failed:
-            raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+        with span('annlite.kernels.build'):
+            _compile(todo, out)
     return libs
+
+
+def _compile(todo: Dict[str, Path], out: Path):
+    """Run one ``nvcc`` per library of ``todo``, all at once; counts the
+    libraries built in ``kernels_built``."""
+    nvcc = _nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = Path(tempfile.mkstemp(dir=out, suffix='.so.tmp')[1])
+        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{name}.cu:\n{log}')
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[name])
+            count('kernels_built')
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -34,6 +34,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..profile import count
 from . import BIG, _ext
 from .fused_scan import _bucket_top2, _lane8_merge_ref, lane8_merge
 from .topk import topk
@@ -347,11 +348,8 @@ def adc_scores_kernel(dtable, codes_t, mask):
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), out.data_ptr(),
             tab_ptr, q, m, k, n, ld, cb, _plan_args(plan), _ext.stream_ptr(dtable)),
             'adc_scores')
-    adc_scores_kernel.launches += 1
+    count('launch.adc_scores')
     return out
-
-
-adc_scores_kernel.launches = 0
 
 
 def adc_block_top2(dtable, codes_t, mask, block_n: int):
@@ -373,11 +371,8 @@ def adc_block_top2(dtable, codes_t, mask, block_n: int):
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), s.data_ptr(),
             r.data_ptr(), *parts, tab_ptr, q, m, k, n, n, block_n, cb,
             _plan_args(plan), _ext.stream_ptr(dtable)), 'adc_block_top2')
-    adc_block_top2.launches += 1
+    count('launch.adc_block_top2')
     return s, r
-
-
-adc_block_top2.launches = 0
 
 
 def lut_pq_kernel(ids, codes, dtable):
@@ -404,11 +399,8 @@ def lut_pq_kernel(ids, codes, dtable):
             ids.data_ptr(), codes.data_ptr(), dtable.data_ptr(), out.data_ptr(),
             q, c, codes.shape[0], m, k, _code_bytes(codes), _ext.stream_ptr(dtable)),
             'lut_pq_scores')
-    lut_pq_kernel.launches += 1
+    count('launch.lut_pq_scores')
     return out
-
-
-lut_pq_kernel.launches = 0
 
 
 def lut_pq_scores(ids: torch.Tensor, codes: torch.Tensor, dtable: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..profile import count
 from . import BIG, _ext
 from .adc import _code_bytes, _mask_row, _round_up, _widen
 
@@ -205,11 +206,8 @@ def _adc_i8_launch(plan: AdcI8Plan, t8, codes_t, mask, scale, offset, out):
             t8.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), scale.data_ptr(),
             offset.data_ptr(), out.data_ptr(), tab.data_ptr(), q, m, k, n, ld, cb, args,
             _ext.stream_ptr(t8)), 'adc_scores_i8')
-    adc_i8_kernel.launches += 1
+    count('launch.adc_scores_i8')
     return out
-
-
-adc_i8_kernel.launches = 0
 
 
 def adc_scores_i8(

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..math import dot_f32
+from ..profile import count, wait
 from . import BIG, _ext
 from .adc import _code_bytes, _lut_pq_scores_ref, lut_pq_scores
 
@@ -149,10 +150,17 @@ def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None):
     d, ids, exp = _sorted_seed(entry_ids, score_fn, L)
     lane = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     slot = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
+    ran = 0
     for i in range(iters):
         # the JAX loop's condition, read every few iterations (see above)
-        if i % _CHECK_EVERY == 0 and not bool(((exp == 0) & (d < BIG)).any()):
-            break
+        if i % _CHECK_EVERY == 0:
+            frontier = ((exp == 0) & (d < BIG)).any()
+            with wait():
+                more = bool(frontier)
+            del frontier  # freed before the iteration's work, as a temporary was
+            if not more:
+                break
+        ran += 1
         # ---- frontier: first B unexpanded alive slots (list is d-sorted) --
         cand = (exp == 0) & (d < BIG)
         rank = torch.cumsum(cand.to(torch.int64), dim=1)  # 1-based
@@ -182,6 +190,7 @@ def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None):
         d_s = torch.where(dup | (ids_s >= NO_ID), BIG, d_s)
         d2, ids2, exp2 = _sort_by(d_s, ids_s, exp_s)
         d, ids, exp = d2[:, :L], ids2[:, :L], exp2[:, :L]
+    count('graph.iters', ran)
     return d[:, :k], ids[:, :k]  # list is d-sorted: top-k is a slice
 
 
@@ -365,11 +374,8 @@ def beam_pq_kernel(adjacency, entry_ids, codes, dtable, k: int, L: int, B: int, 
             d.data_ptr(), ids.data_ptr(), its.data_ptr(), n, r, e, m, kc, q, L, B, iters, k,
             _code_bytes(codes), plan.sort_len, plan.threads, int(plan.table_in_smem),
             _ext.stream_ptr(dtable)), 'beam_pq')
-    beam_pq_kernel.launches += 1
+    count('launch.beam_pq')
     return d, ids, its
-
-
-beam_pq_kernel.launches = 0
 
 
 def beam_search_pq(

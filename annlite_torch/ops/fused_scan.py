@@ -35,6 +35,7 @@ import torch
 
 from ..enums import Metric
 from ..math import dot_f32
+from ..profile import count
 from . import _ext
 
 # the widest row the block passes take (their query tile then streams
@@ -333,19 +334,16 @@ def block_top2(q, qsc, x, rs, bias, block_rows: int, coef: float,
     """Launch the block pass (K2 / K1's block pass) that matches the corpus
     -> ``(s, r)`` as :func:`_fused_scan_ref`: ``block_top2`` for int8 codes
     ``x [N, D]``, :func:`block_top2_int4` for ``packed_int4``,
-    :func:`block_top2_bf16` for a bf16 ``x``.  Each counts its own
-    launches."""
+    :func:`block_top2_bf16` for a bf16 ``x``.  Each counts its launches
+    in the tracer's ``launch.<name>`` (`profile.py`)."""
     if packed_int4:
         return block_top2_int4(q, qsc, x, rs, bias, block_rows, coef)
     if x.dtype == torch.bfloat16:
         return block_top2_bf16(q, qsc, x, rs, bias, block_rows, coef)
     out = _launch_block_pass('block_top2', 'int8', q, qsc, x, rs, bias, block_rows, coef,
                              torch.int8, torch.int8, q.shape[1])
-    block_top2.launches += 1
+    count('launch.block_top2')
     return out
-
-
-block_top2.launches = 0
 
 
 def block_top2_int4(q8, qsc, x4, rs, bias, block_rows: int, coef: float):
@@ -353,11 +351,8 @@ def block_top2_int4(q8, qsc, x4, rs, bias, block_rows: int, coef: float):
     nibble-packed corpus ``x4 [N, D/2]``."""
     out = _launch_block_pass('block_top2_int4', 'int4', q8, qsc, x4, rs, bias, block_rows,
                              coef, torch.int8, torch.int8, q8.shape[1] // 2)
-    block_top2_int4.launches += 1
+    count('launch.block_top2_int4')
     return out
-
-
-block_top2_int4.launches = 0
 
 
 def block_top2_bf16(qbf, qsc, xbf, rs, bias, block_rows: int, coef: float):
@@ -365,11 +360,8 @@ def block_top2_bf16(qbf, qsc, xbf, rs, bias, block_rows: int, coef: float):
     corpus ``xbf [N, D]`` (``qsc`` and ``rs`` are ones on the scan path)."""
     out = _launch_block_pass('block_top2_bf16', 'bf16', qbf, qsc, xbf, rs, bias, block_rows,
                              coef, torch.bfloat16, torch.bfloat16, qbf.shape[1])
-    block_top2_bf16.launches += 1
+    count('launch.block_top2_bf16')
     return out
-
-
-block_top2_bf16.launches = 0
 
 
 def lane8_merge(s, r):
@@ -388,11 +380,8 @@ def lane8_merge(s, r):
         _ext.check(lib.annlite_lane8_merge(
             s.data_ptr(), r.data_ptr(), s8.data_ptr(), r8.data_ptr(), nq,
             c // 256, lane8_merge_plan(nq, c // 256), _ext.stream_ptr(s)), 'lane8_merge')
-    lane8_merge.launches += 1
+    count('launch.lane8_merge')
     return s8, r8
-
-
-lane8_merge.launches = 0
 
 
 def _fused_scan(q, qsc, x, rs, bias, block_rows, coef, select, packed_int4):

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..enums import Metric
+from ..profile import count
 from . import _ext
 
 # the dimensions the wrapper takes (csrc/gather.cu kMaxDim); the kernel holds
@@ -103,11 +104,8 @@ def gather_rerank(q, x_f32, cand, metric_val: int):
             q.data_ptr(), x_f32.data_ptr(), cand.data_ptr(), out.data_ptr(),
             nq, n, d, r, int(metric_val == int(Metric.EUCLIDEAN)), int(_vec4(q, x_f32)),
             gather_plan(nq, r).warps, _ext.stream_ptr(q)), 'gather_rerank')
-    gather_rerank.launches += 1
+    count('launch.gather_rerank')
     return out
-
-
-gather_rerank.launches = 0
 
 
 def gather_rerank_dists(q, x_f32, cand, metric_val: int) -> torch.Tensor:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..profile import count
 from . import BIG, _ext
 from .adc import (MAX_ADC_CLUSTERS, MAX_SMEM, TARGET_CTAS, AdcPlan, _code_bytes, _plan_args,
                   _round_up, _split_parts, _table_scratch, adc_info, adc_plan, adc_scores_ref,
@@ -299,11 +300,8 @@ def ivf_scores(block_ids, dtable, codes_blocks, plan: Optional[IvfPlan] = None):
                 block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
                 out.data_ptr(), s, q, m, k, bs, cb, int(plan.smem_tab), plan.mc,
                 _ext.stream_ptr(dtable)), 'ivf_scores')
-    ivf_scores.launches += 1
+    count('launch.ivf_scores')
     return out
-
-
-ivf_scores.launches = 0
 
 
 def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
@@ -328,7 +326,7 @@ def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
                 mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), *parts, tab_ptr,
                 s, q, m, k, bs, cb, _plan_args(plan.core), _ext.stream_ptr(dtable)),
                 'ivf_block_top2')
-        ivf_block_top2.launches += 1
+        count('launch.ivf_block_top2')
         return so, ro
     part_s = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.float32, device=dev)
     part_g = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.int32, device=dev)
@@ -340,11 +338,8 @@ def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
             mask_blocks.data_ptr(), so.data_ptr(), ro.data_ptr(), part_s.data_ptr(),
             part_g.data_ptr(), counters.data_ptr(), s, q, m, k, bs, cb, plan.qt,
             int(plan.smem_tab), plan.cpt, _ext.stream_ptr(dtable)), 'ivf_block_top2')
-    ivf_block_top2.launches += 1
+    count('launch.ivf_block_top2')
     return so, ro
-
-
-ivf_block_top2.launches = 0
 
 
 # --------------------------------------------------------------------------

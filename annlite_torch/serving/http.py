@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 from aiohttp import web
 
+from .. import profile
 from ..doc import Doc
 from .executor import AnnLiteIndexer
 
@@ -128,6 +129,8 @@ def make_app(
         st = await _run(executor.status)
         if batcher is not None:
             st['batcher'] = batcher.stats
+        # the process's span totals and counters (`profile.py`)
+        st['tracing'] = profile.snapshot()
         return web.json_response(st)
 
     async def h_backup(request):

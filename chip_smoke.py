@@ -169,9 +169,9 @@ operation, so ``bound_by`` is then ``operations``; the ``bounds`` line
 names each kernel's floor (``memory bytes``, ``arithmetic``,
 ``shared-memory lookups``).
 
-Each main-path run resets the kernels' launch counters just before it and
-reads them just after; a kernel of the path that was never launched fails the
-run.  The ``kernels`` line and the ``nvidia-smi`` line come last but one and
+Each main-path run reads the kernels' launch counters (the tracer's
+``launch.<kernel>``, `annlite_torch/profile.py`) just before it and just
+after; a kernel of the path that was never launched fails the run.  The ``kernels`` line and the ``nvidia-smi`` line come last but one and
 two; the last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that line.  Needs one card; imports nothing of JAX.
 """
@@ -253,6 +253,7 @@ def main() -> int:
     from annlite_torch.index.graph import GraphIndex
     from annlite_torch.index.ivf_pq import IVFPQIndex
     from annlite_torch.index.pq_scan import PQScanIndex
+    from annlite_torch import profile as tracer
     from annlite_torch.math import cdist, l2_normalize, top_k
     from annlite_torch.ops import _ext
     from annlite_torch.ops import adc as ad
@@ -264,24 +265,24 @@ def main() -> int:
     from annlite_torch.ops.scan import (quantize_rows_int4_device,
                                         quantize_rows_int8_device, scan_topk)
 
-    kernels = {'block_top2': fs.block_top2, 'lane8_merge': fs.lane8_merge,
-               'block_top2_int4': fs.block_top2_int4,
-               'block_top2_bf16': fs.block_top2_bf16,
-               'gather_rerank': ga.gather_rerank,
-               'adc_scores': ad.adc_scores_kernel, 'adc_block_top2': ad.adc_block_top2,
-               'ivf_scores': iv.ivf_scores, 'ivf_block_top2': iv.ivf_block_top2,
-               'lut_pq_scores': ad.lut_pq_kernel, 'adc_scores_i8': ai.adc_i8_kernel,
-               'beam_pq': bm.beam_pq_kernel}
+    # the port's kernels, each counted in the tracer's ``launch.<name>``
+    kernels = ('block_top2', 'lane8_merge', 'block_top2_int4', 'block_top2_bf16',
+               'gather_rerank', 'adc_scores', 'adc_block_top2', 'ivf_scores',
+               'ivf_block_top2', 'lut_pq_scores', 'adc_scores_i8', 'beam_pq')
     main_launches = {k: 0 for k in kernels}
 
+    def launch_counts():
+        """Launches of each kernel so far."""
+        c = tracer.snapshot()['counters']
+        return {k: c.get(f'launch.{k}', 0) for k in kernels}
+
     def drive(path_name: str, expected, fn):
-        """Run one main path with the counters at 0; fail if a kernel it must
-        go through was never launched."""
-        for k in kernels.values():
-            k.launches = 0
+        """Run one main path; fail if a kernel it must go through was never
+        launched."""
+        before = launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: k.launches for name, k in kernels.items()}
+        counts = {k: n - before[k] for k, n in launch_counts().items()}
         for name in expected:
             if counts[name] == 0:
                 fail(f'{path_name}: kernel {name} was never launched')
@@ -1604,13 +1605,16 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
+    build_spans0 = {k: v['total_ns'] * 1e-9 for k, v in tracer.snapshot()['spans'].items()}
     t0 = time.perf_counter()
     gbuilt = GraphIndex(d2, **dict(gkw, beam_width=16))
     gbuilt.add_with_ids(gx, np.arange(gn))
     torch.cuda.synchronize()
     graph_build_s = time.perf_counter() - t0
     graph_build_peak = torch.cuda.max_memory_allocated() - mem0
-    graph_build_stats = dict(gbuilt._graph.stats)
+    graph_build_stats = {k[len('annlite.build.'):]: v['total_ns'] * 1e-9 - build_spans0.get(k, 0.0)
+                         for k, v in tracer.snapshot()['spans'].items()
+                         if k.startswith('annlite.build.')}
     graph_w = gbuilt._graph.w
     graph_integrity = gbuilt.check_integrity()
     if not graph_integrity['ok'] or graph_integrity['reachable_fraction'] < 0.999:
@@ -1702,10 +1706,10 @@ def main() -> int:
         graph_lat[f'{name}_batch64_ms'] = host_ms(lambda: run(gq_t), reps=10)
         graph_lat[f'{name}_batch1_ms'] = host_ms(lambda: run(gq_t[:1]), reps=10)
         if name.startswith('pq'):
-            for k in kernels.values():
-                k.launches = 0
+            before = launch_counts()
             run(gq_t)
-            pq_launches[name] = {k: v.launches for k, v in kernels.items() if v.launches}
+            pq_launches[name] = {k: n - before[k] for k, n in launch_counts().items()
+                                 if n != before[k]}
     # beam_pq on this graph, as the PQ searches call it (entry: the medoid,
     # ef 128, B 8, 32 iterations at most): held to the eager loop with the
     # plain scorer, then timed at Q = 64 and 1 beside that loop; its bound
@@ -2088,9 +2092,6 @@ def main() -> int:
 
     def match_scores(docs):
         return [[m.score for m in d.matches] for d in docs]
-
-    def launch_counts():
-        return {name: k.launches for name, k in kernels.items()}
 
     def search_profile(ex):
         """The device time of one executor search at batch 64 (metadata

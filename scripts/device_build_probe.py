@@ -29,6 +29,7 @@ def main() -> int:
         print('device_build_probe: CUDA is not available', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from annlite_torch import profile
     from annlite_torch.index.device_build import DeviceVamanaBuilder
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -42,18 +43,23 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     b = DeviceVamanaBuilder(d, max_degree=32, l_build=64)
+    spans0 = profile.snapshot()['spans']
     t0 = time.perf_counter()
     b.add(x)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - mem0
+    # the build's stages: its spans annlite.build.<stage> in the tracer
+    stage_s = {k[len('annlite.build.'):]:
+               (v['total_ns'] - spans0.get(k, {}).get('total_ns', 0)) * 1e-9
+               for k, v in profile.snapshot()['spans'].items() if k.startswith('annlite.build.')}
     adj = b.raw_adjacency()
     deg = (adj >= 0).sum(axis=1)
     self_loops = int((adj == np.arange(n)[:, None]).sum())
     print(json.dumps({
         'card': smi.stdout.strip(), 'rows': n, 'dim': d, 'w': b.w,
         'build_s': build_s, 'rows_per_s': n / build_s,
-        'stage_s': b.stats, 'stage_share': {k: v / build_s for k, v in b.stats.items()},
+        'stage_s': stage_s, 'stage_share': {k: v / build_s for k, v in stage_s.items()},
         'peak_device_bytes': peak, 'reachable_fraction': float(b._reachable_mask().mean()),
         'degree_max': int(deg.max()), 'degree_mean': float(deg.mean()),
         'self_loops': self_loops}))

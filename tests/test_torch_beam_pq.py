@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from annlite_torch import profile
 from annlite_torch.index.vamana_lib import VamanaGraph
 from annlite_torch.ops import beam as tb
 from annlite_tpu.ops import beam as jb
@@ -168,6 +169,7 @@ def test_cpu_search_takes_the_eager_loop(graph, monkeypatch):
     CPU tensors."""
     adj, entry = graph
     codes, dtable = _tables(np.uint8, 16)
+    launches0 = profile.snapshot()['counters'].get('launch.beam_pq', 0)
     seen = []
     real = tb._beam_loop
     monkeypatch.setattr(tb, '_beam_loop', lambda *a, **kw: seen.append(1) or real(*a, **kw))
@@ -175,4 +177,4 @@ def test_cpu_search_takes_the_eager_loop(graph, monkeypatch):
     assert seen == [1]
     with pytest.raises(ValueError, match='CUDA'):
         tb.beam_pq_kernel(_t(adj), _t(entry), _t(codes), _t(dtable), 8, 16, 4, 8)
-    assert tb.beam_pq_kernel.launches == 0
+    assert profile.snapshot()['counters'].get('launch.beam_pq', 0) == launches0

@@ -20,6 +20,7 @@ import pytest
 import torch
 from torch_parity import assert_topk_close
 
+from annlite_torch import profile
 from annlite_torch.convert import graph_index_from_jax_state, pq_codec_from_jax_state
 from annlite_torch.index.device_build import DeviceVamanaBuilder as TBuilder
 from annlite_torch.index.graph import GraphIndex as TGraph
@@ -198,7 +199,14 @@ def test_build_invariants_and_recall(builds, x):
     rec_t, rec_j = _recall(adj, t.medoid, x), _recall(j.adjacency(), j.medoid, x)
     assert rec_t > 0.8, rec_t
     assert abs(rec_t - rec_j) <= 0.03, (rec_t, rec_j)
-    assert set(t.stats) == {'upload', 'intra', 'pools', 'prune', 'backedges', 'push', 'repair'}
+    # each stage of each batch is a span of the tracer: two batches of 1,024
+    # rows, the first without a graph to search, one repair
+    before = profile.snapshot()['spans']
+    TBuilder(D, device='cpu', **BKW).add(x[:2048])
+    stages = {k[len('annlite.build.'):]: v['count'] - before.get(k, {'count': 0})['count']
+              for k, v in profile.snapshot()['spans'].items() if k.startswith('annlite.build.')}
+    assert stages == {'upload': 2, 'intra': 2, 'pools': 1, 'prune': 2, 'backedges': 2,
+                      'push': 2, 'repair': 1}
 
 
 def test_incremental_adds_match_bulk_invariants(x):

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from annlite_torch import profile
 from annlite_torch.ops import fused_scan as tfs
 from annlite_torch.ops import gather as tga
 from annlite_torch.ops import scan as tsc
@@ -208,6 +209,7 @@ def test_lane8_merge_ref_is_stable_top8():
 
 
 def test_wrappers_refuse_cpu_tensors():
+    launches0 = profile.snapshot()['counters']
     q8 = torch.zeros((2, D), dtype=torch.int8)
     qsc = torch.ones(2)
     x8 = torch.zeros((8192, D), dtype=torch.int8)
@@ -219,8 +221,9 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         tga.gather_rerank(torch.zeros((2, D)), torch.zeros((10, D)),
                           torch.zeros((2, 3), dtype=torch.int32), 1)
-    assert tfs.block_top2.launches == 0
-    assert tga.gather_rerank.launches == 0
+    launches = profile.snapshot()['counters']
+    for k in ('launch.block_top2', 'launch.lane8_merge', 'launch.gather_rerank'):
+        assert launches.get(k, 0) == launches0.get(k, 0)
 
 
 @pytest.mark.parametrize('case,reason', [

@@ -13,6 +13,7 @@ import annlite_tpu.doc as jdoc
 from annlite_torch.convert import flat_index_from_jax_state
 from annlite_torch.index.flat import FlatIndex as TFlat
 from annlite_torch.index_api import AnnLite as TAnnLite
+from annlite_torch import profile
 from annlite_torch.ops import fused_scan as tfs
 from annlite_torch.ops import scan as tsc
 from annlite_tpu.enums import Metric
@@ -266,6 +267,7 @@ def test_fused_scan_raw_scores_int4_bit_equal():
 
 
 def test_variant_wrappers_refuse_cpu_tensors():
+    launches0 = profile.snapshot()['counters']
     q8 = torch.zeros((2, D), dtype=torch.int8)
     ones = torch.ones(8192)
     with pytest.raises(ValueError, match='CUDA'):
@@ -274,8 +276,9 @@ def test_variant_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         tfs.block_top2(q8.to(torch.bfloat16), torch.ones(2),
                        torch.zeros((8192, D), dtype=torch.bfloat16), ones, ones, 8192, -1.0)
-    assert tfs.block_top2_int4.launches == 0
-    assert tfs.block_top2_bf16.launches == 0
+    launches = profile.snapshot()['counters']
+    for k in ('launch.block_top2_int4', 'launch.block_top2_bf16'):
+        assert launches.get(k, 0) == launches0.get(k, 0)
 
 
 @pytest.mark.parametrize('n,d,q,ok', [

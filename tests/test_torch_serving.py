@@ -397,6 +397,27 @@ def test_http_concurrent_search_batching(tmp_path):
         j.close()
 
 
+def test_http_status_reports_the_tracer(tmp_path):
+    """/status carries the process's span totals and counters under
+    ``tracing``: after a search, ``annlite.search`` with its count."""
+    ex = TIndexer(n_dim=D, data_path=str(tmp_path / 'srv_t'), device='cpu')
+    server = TServer(ex, port=0).start()
+    try:
+        base = f'http://127.0.0.1:{server.port}'
+        docs = _json_docs(_x(20), tags=False)
+        _post(base, '/index', {'docs': docs})
+        ex.flush()
+        _post(base, '/search', {'docs': docs[:2], 'parameters': {'limit': 5}})
+        st = _get(base, '/status')
+        assert st['total_docs'] == 20
+        spans = st['tracing']['spans']
+        assert spans['annlite.search']['count'] >= 1
+        assert spans['annlite.search']['total_ns'] > 0
+        assert st['tracing']['counters']['host_syncs'] >= 1
+    finally:
+        server.stop()
+
+
 @pytest.mark.parametrize('cls', [TBatcher, JBatcher], ids=['torch', 'jax'])
 def test_batcher_coalesces_under_load(cls):
     """8 concurrent submits with identical parameters and max_batch=8 share
