@@ -6,6 +6,12 @@ Everything a cell needs is found by name: its configuration in
 end-to-end metric's reader in ``endtoend/<name>.py`` and each per-layer
 metric's in ``metrics/<name>.py`` (each a ``read(ctx)`` returning a number
 or None), and each kernel's bytes and operations in ``rooflines/<kernel>.py``.
+
+A configuration whose ``AnnLite`` arguments need a trained codec
+(``n_subvectors``, ``n_cells > 1`` or ``n_components``) carries
+``"train": {"sample": <int>}``: set-up then calls ``AnnLite.train`` once on
+that many distinct corpus rows, drawn from the seed alone (:func:`train_rows`),
+before the first ``AnnLite.index``, and times it as ``setup_split_s['train']``.
 """
 import gc
 import importlib.util
@@ -27,6 +33,8 @@ from .traffic import Traffic
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 PY_TYPES = {'float': float, 'int': int, 'str': str}
+# the generator tag of the training sample: the rows depend on the seed alone
+TRAIN_TAG = 0x7EA1
 
 
 def load_json(path: Path) -> Dict:
@@ -76,11 +84,41 @@ class Bench:
         return load_module(self.home / 'rooflines' / f'{kernel}.py')
 
 
+def check_train(config: Dict):
+    """Refuse a configuration whose ``AnnLite`` has a codec to train before
+    its first insert (a PQ codec, a VQ codec or a projector) and no
+    ``train``, and a ``train`` that is not ``{"sample": <positive int>}``."""
+    name = config.get('name', '?')
+    train = config.get('train')
+    if train is None:
+        kw = config['annlite']
+        if kw.get('n_subvectors') or kw.get('n_cells', 1) > 1 or kw.get('n_components'):
+            raise ValueError(
+                f"configuration {name!r}: its annlite arguments (n_subvectors, "
+                f"n_cells > 1 or n_components) need a trained codec; give it a "
+                f"'train' key, {{\"sample\": <rows>}}")
+    elif not (isinstance(train, dict) and set(train) == {'sample'}
+              and type(train['sample']) is int and train['sample'] > 0):
+        raise ValueError(f"configuration {name!r}: 'train' must be "
+                         f'{{"sample": <positive int>}}, got {train!r}')
+
+
 def configure(bench: Bench, cell: Dict, overrides: Optional[Dict] = None):
-    """The cell's configuration and traffic mix, with ``overrides``."""
+    """The cell's configuration and traffic mix, with ``overrides``; the
+    configuration's ``train`` key checked (:func:`check_train`)."""
     over = dict(overrides or {})
     mix = {**bench.traffic(cell), **over.pop('traffic', {})}
-    return {**bench.config(cell), **over}, mix
+    config = {**bench.config(cell), **over}
+    check_train(config)
+    return config, mix
+
+
+def train_rows(seed: int, n_docs: int, sample: int) -> np.ndarray:
+    """The corpus rows the codecs train on: ``min(sample, n_docs)`` distinct
+    rows, ascending, from a generator of the seed and the harness's own tag,
+    whatever the traffic, the tags or the ingest batch."""
+    rng = np.random.default_rng([seed, TRAIN_TAG])
+    return np.sort(rng.choice(n_docs, size=min(sample, n_docs), replace=False))
 
 
 def make_data(config: Dict, pool: int, seed: int):
@@ -96,9 +134,12 @@ def make_data(config: Dict, pool: int, seed: int):
 
 
 def build(config: Dict, xb: np.ndarray, cols: Dict[str, np.ndarray], data_path: Path,
-          device: str):
-    """The ``AnnLite`` of the configuration, filled the way a user fills it:
-    ``AnnLite.index`` in requests of ``ingest_batch`` docs."""
+          device: str, seed: int):
+    """The ``AnnLite`` of the configuration, made the way a user makes it:
+    ``AnnLite.train`` on the sample of :func:`train_rows` where the
+    configuration has ``train``, then ``AnnLite.index`` in requests of
+    ``ingest_batch`` docs.  Returns it and the seconds training took (0
+    without ``train``)."""
     from annlite_torch import AnnLite
     from annlite_torch.doc import Doc
 
@@ -106,6 +147,11 @@ def build(config: Dict, xb: np.ndarray, cols: Dict[str, np.ndarray], data_path: 
     if 'columns' in kw:
         kw['columns'] = [(c, PY_TYPES[t]) for c, t in kw['columns']]
     ann = AnnLite(data_path=str(data_path), device=device, **kw)
+    train_s = 0.0
+    if 'train' in config:
+        t = time.perf_counter()
+        ann.train(xb[train_rows(seed, xb.shape[0], config['train']['sample'])])
+        train_s = time.perf_counter() - t
     step = int(config['ingest_batch'])
     names = sorted(cols)
     for lo in range(0, xb.shape[0], step):
@@ -114,7 +160,7 @@ def build(config: Dict, xb: np.ndarray, cols: Dict[str, np.ndarray], data_path: 
         ann.index([Doc(id=str(r), embedding=xb[r],
                        tags={c: vals[c][r - lo] for c in names})
                    for r in range(lo, hi)])
-    return ann
+    return ann, train_s
 
 
 def make_call(ann, t: Traffic, entry: Optional[Callable] = None) -> Callable:
@@ -227,7 +273,7 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: boo
     try:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        ann = build(config, xb, cols, tmp / 'store', device)
+        ann, train_s = build(config, xb, cols, tmp / 'store', device, seed)
         t_build = time.perf_counter()
         if tamper is not None:
             tamper(ann)
@@ -318,6 +364,10 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: boo
         out['device'].update(busy_s=dev_trace['busy_s'], window_s=dev_trace['window_s'])
         out['breakdown'] = {'device_ops': dev_trace['device_ops'],
                             'idle_gaps': dev_trace['idle_gaps']}
+    split = {'data': t_data - t0}
+    if 'train' in config:
+        split['train'] = train_s
+    split.update(ingest=t_build - t_data - train_s, warmup=t0 + setup_s - t_build)
     # requests completed in each quarter of the window: drift within a run
     ends = np.cumsum(lat[:n_window])
     quarters = np.bincount(np.minimum((4 * ends / max(window_s, 1e-9)).astype(int), 3),
@@ -325,8 +375,7 @@ def run_cell(bench: Bench, cell_name: str, seed: int, seconds: float, trace: boo
     out['detail'] = {'window_s': window_s, 'requests': n_window, 'answered': res['answered'],
                      'requests_by_quarter': quarters,
                      'faults': res['faults'], 'setup_s': setup_s,
-                     'setup_split_s': {'data': t_data - t0, 'ingest': t_build - t_data,
-                                       'warmup': t0 + setup_s - t_build},
+                     'setup_split_s': split,
                      # the window's host: CPU seconds of the process and of the
                      # request loop's thread, voluntary and involuntary switches
                      'window_usage': [b - a for a, b in zip(u0, u1)]}
