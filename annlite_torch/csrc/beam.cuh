@@ -32,6 +32,20 @@
 // long strides and the first sort's result, the entries' distances and
 // dkeys), then the selection of B ids and its count: state_bytes().
 //
+// Filtered (kFilter): a predicate, one byte a row (nonzero: the row passes;
+// an id >= n_pass fails), and a result list of the k best passing rows
+// beside the traversal's list.  The traversal is untouched: every row is
+// scored and may enter the list and be expanded, whether it passes or not,
+// so routes through failing rows hold, and the stop rule is the same.  Each
+// scored batch (the seed's entries, then each expansion's B*R) that holds a
+// passing row below the result list's last is merged into it: one bitonic
+// sort of (fkey(d) << 32 | id) over the list and the batch, then warp 0
+// keeps the first k distinct keys (a row scores the same wherever it is
+// scored, so its copies have one key and sort side by side).  The result is
+// the k best of every passing row the search scored, by (distance, id): the
+// plain twin's, whatever the order of the merges.  It takes 8 bytes a slot
+// after the state.
+//
 // A scorer is a type with
 //   template <class IdOf>
 //   __device__ void score(int count, IdOf id_of, float* d, uint32_t* dk) const;
@@ -58,7 +72,8 @@ struct Loop {
   float* d_out;     // [nq, k]
   int* id_out;      // [nq, k]
   int* iters_out;   // [nq] or null
-  int n, r, e, L, B, iters, k, p;
+  const unsigned char* pass;  // [n_pass] of a filtered search, else unused
+  int n, r, e, L, B, iters, k, p, n_pass;
 };
 
 __host__ __device__ __forceinline__ size_t state_bytes(int p, int B) {
@@ -131,9 +146,66 @@ __device__ void bitonic(uint64_t (&k)[E], int p, uint64_t* xbuf) {
   }
 }
 
+// Merge the passing rows among `count` scored entries (src_d, src_dk) into
+// the result list res[0, k) of a filtered search, which holds sorted keys
+// fkey(d) << 32 | id, kPad past its last row.  Elements [0, nres) of the
+// sort are the list (nres 0 at the seed, whose list is empty, else k), the
+// next `count` the entries; an entry that fails, scores BIG or does not come
+// before the list's last key sorts as padding.  Nothing is sorted where no
+// entry comes before it.  xbuf and out: p keys each.  Every thread calls it.
+template <int E>
+__device__ void take_passing(const Loop& a, uint64_t* res, int nres, const float* src_d,
+                             const uint32_t* src_dk, int count, uint64_t (&k)[E],
+                             uint64_t* xbuf, uint64_t* out) {
+  const int tid = threadIdx.x;
+  const uint64_t last = res[a.k - 1];
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const int e = tid * E + j;
+    uint64_t x = kPad;
+    if (e < nres) {
+      x = res[e];
+    } else if (e < nres + count) {
+      const float d = src_d[e - nres];
+      const uint32_t id = src_dk[e - nres] >> 1;
+      if (d < kBig && id < (uint32_t)a.n_pass && __ldg(a.pass + id) != 0) {
+        x = (uint64_t)fkey(d) << 32 | id;
+        if (x < last) {
+          any = 1;
+        } else {
+          x = kPad;
+        }
+      }
+    }
+    k[j] = x;
+  }
+  if (!__syncthreads_or(any)) return;
+  bitonic<E>(k, a.p, xbuf);
+#pragma unroll
+  for (int j = 0; j < E; ++j) out[tid * E + j] = k[j];
+  __syncthreads();
+  if (tid < 32) {
+    int kept = 0;
+    for (int base = 0; base < a.p && kept < a.k; base += 32) {
+      const int i = base + tid;
+      const uint64_t x = out[i];
+      const bool c = x != kPad && (i == 0 || out[i - 1] != x);
+      const unsigned ball = __ballot_sync(0xffffffffu, c);
+      const int rank = kept + __popc(ball & ((1u << tid) - 1u));
+      if (c && rank < a.k) res[rank] = x;
+      kept += __popc(ball);
+      if (__ballot_sync(0xffffffffu, x == kPad) != 0) break;  // the rest is padding
+    }
+    for (int i = min(kept, a.k) + tid; i < a.k; i += 32) res[i] = kPad;
+  }
+  __syncthreads();
+}
+
 // One query's search (query blockIdx.x) in the state at `st`
-// (state_bytes(a.p, a.B), 8-byte aligned), blockDim.x == a.p / E threads.
-template <int E, class Scorer>
+// (state_bytes(a.p, a.B), 8-byte aligned, then k result keys when
+// kFilter), blockDim.x == a.p / E threads.
+template <int E, bool kFilter = false, class Scorer>
 __device__ __forceinline__ void search(const Loop& a, const Scorer& sc, unsigned char* st) {
   const int q = blockIdx.x;
   const int tid = threadIdx.x;
@@ -144,6 +216,7 @@ __device__ __forceinline__ void search(const Loop& a, const Scorer& sc, unsigned
   uint32_t* all_dk = reinterpret_cast<uint32_t*>(all_d + a.p);
   int* sel = reinterpret_cast<int*>(all_dk + a.p);  // [B]
   int* nsel = sel + a.B;
+  uint64_t* res = reinterpret_cast<uint64_t*>(st + state_bytes(a.p, a.B));  // kFilter: [k]
 
   // ---- seed: score the entries, pad to L, sort by d ----
   const int* entry = a.entry + (size_t)q * a.e;
@@ -152,8 +225,12 @@ __device__ __forceinline__ void search(const Loop& a, const Scorer& sc, unsigned
     all_d[i] = kBig;
     all_dk[i] = kNoId * 2u + 1u;
   }
+  if constexpr (kFilter) {
+    for (int i = tid; i < a.k; i += nthreads) res[i] = kPad;
+  }
   __syncthreads();
   uint64_t k[E];  // this thread's sort keys: elements tid * E + j
+  if constexpr (kFilter) take_passing<E>(a, res, 0, all_d, all_dk, a.e, k, key2, key1);
 #pragma unroll
   for (int j = 0; j < E; ++j) {
     const int e = tid * E + j;
@@ -208,6 +285,9 @@ __device__ __forceinline__ void search(const Loop& a, const Scorer& sc, unsigned
         },
         all_d + a.L, all_dk + a.L);
     __syncthreads();
+    if constexpr (kFilter) {
+      take_passing<E>(a, res, a.k, all_d + a.L, all_dk + a.L, nbr, k, key2, key1);
+    }
     // ---- merge: stable sort by dkey, dedup, stable sort by d, keep L ----
 #pragma unroll
     for (int j = 0; j < E; ++j) {
@@ -244,8 +324,14 @@ __device__ __forceinline__ void search(const Loop& a, const Scorer& sc, unsigned
   }
 
   for (int i = tid; i < a.k; i += nthreads) {
-    a.d_out[(size_t)q * a.k + i] = all_d[i];
-    a.id_out[(size_t)q * a.k + i] = (int)(all_dk[i] >> 1);
+    if constexpr (kFilter) {
+      const uint64_t x = res[i];
+      a.d_out[(size_t)q * a.k + i] = x == kPad ? kBig : funkey((uint32_t)(x >> 32));
+      a.id_out[(size_t)q * a.k + i] = x == kPad ? (int)kNoId : (int)(uint32_t)x;
+    } else {
+      a.d_out[(size_t)q * a.k + i] = all_d[i];
+      a.id_out[(size_t)q * a.k + i] = (int)(all_dk[i] >> 1);
+    }
   }
   if (a.iters_out != nullptr && tid == 0) a.iters_out[q] = it;
 }

@@ -163,7 +163,8 @@ struct VecScorer {
   }
 };
 
-template <int kBytes, bool kVec, int E>
+// kFilter: a filtered search (beam.cuh), the k best passing rows out.
+template <int kBytes, bool kVec, int E, bool kFilter>
 __global__ void __launch_bounds__(beam::kMaxThreads) beam_vec_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -172,14 +173,15 @@ __global__ void __launch_bounds__(beam::kMaxThreads) beam_vec_kernel(const Args 
   __syncthreads();
   const VecScorer<kBytes, kVec> sc{static_cast<const unsigned char*>(a.rows), qs, a.lp.n,
                                    a.dim, a.lanes, a.euclid != 0};
-  beam::search<E>(a.lp, sc, smem + query_bytes(a.dim));
+  beam::search<E, kFilter>(a.lp, sc, smem + query_bytes(a.dim));
 }
 
-template <int kBytes, bool kVec, int E>
+template <int kBytes, bool kVec, int E, bool kFilter>
 int run(const Args& a, int nq, cudaStream_t st) {
-  const size_t smem = query_bytes(a.dim) + beam::state_bytes(a.lp.p, a.lp.B);
+  const size_t smem = query_bytes(a.dim) + beam::state_bytes(a.lp.p, a.lp.B) +
+                      (kFilter ? (size_t)a.lp.k * 8 : 0);
   if (smem > (size_t)beam::kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = beam_vec_kernel<kBytes, kVec, E>;
+  auto kern = beam_vec_kernel<kBytes, kVec, E, kFilter>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -189,11 +191,17 @@ int run(const Args& a, int nq, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int kBytes, bool kVec>
+template <int kBytes, bool kVec, bool kFilter>
 int run_e(const Args& a, int nq, int e, cudaStream_t st) {
-  if (e == 2) return run<kBytes, kVec, 2>(a, nq, st);
-  if (e == 4) return run<kBytes, kVec, 4>(a, nq, st);
-  return run<kBytes, kVec, 8>(a, nq, st);
+  if (e == 2) return run<kBytes, kVec, 2, kFilter>(a, nq, st);
+  if (e == 4) return run<kBytes, kVec, 4, kFilter>(a, nq, st);
+  return run<kBytes, kVec, 8, kFilter>(a, nq, st);
+}
+
+template <int kBytes, bool kVec>
+int run_f(const Args& a, int nq, int e, cudaStream_t st) {
+  return a.lp.pass != nullptr ? run_e<kBytes, kVec, true>(a, nq, e, st)
+                              : run_e<kBytes, kVec, false>(a, nq, e, st);
 }
 
 template <int kBytes>
@@ -203,7 +211,7 @@ int launch(Args a, int nq, int e, cudaStream_t st) {
   const int nv = vec ? a.dim * kBytes / 16 : a.dim;
   a.lanes = 1;
   while (a.lanes < 32 && a.lanes < nv) a.lanes <<= 1;
-  return vec ? run_e<kBytes, true>(a, nq, e, st) : run_e<kBytes, false>(a, nq, e, st);
+  return vec ? run_f<kBytes, true>(a, nq, e, st) : run_f<kBytes, false>(a, nq, e, st);
 }
 
 }  // namespace
@@ -214,21 +222,26 @@ extern "C" {
 // entries [nq, e] int32, rows [n, dim] (float32 when row_bytes == 4, bf16
 // when 2), queries [nq, dim] float32 -> d_out [nq, k] float32, id_out [nq,
 // k] int32 and, when not null, iters_out [nq] int32 (the iterations each
-// query ran).  euclid: squared L2, else 1 - inner product.  The plan (sort
+// query ran).  euclid: squared L2, else 1 - inner product.  pass: null, or
+// the predicate of a filtered search, n_pass bytes (nonzero: the row
+// passes); d_out and id_out then hold the k best passing rows scored, by
+// (distance, id), padded with (BIG, NO_ID).  The plan (sort
 // slots p, threads) comes from ops/beam.py beam_vec_plan: p a power of two
 // >= max(64, L + B * r), each thread holding p / threads (2, 4 or 8) sort
 // keys.  Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a geometry it does not take).
 int annlite_beam_vec(const void* adj, const void* entry, const void* rows, const void* queries,
-                     void* d_out, void* id_out, void* iters_out, int n, int r, int e, int dim,
-                     int nq, int L, int B, int iters, int k, int row_bytes, int euclid, int p,
-                     int threads, void* stream) {
+                     const void* pass, void* d_out, void* id_out, void* iters_out, int n, int r,
+                     int e, int dim, int nq, int L, int B, int iters, int k, int row_bytes,
+                     int euclid, int n_pass, int p, int threads, void* stream) {
   Args a;
   a.lp.adj = static_cast<const int*>(adj);
   a.lp.entry = static_cast<const int*>(entry);
   a.lp.d_out = static_cast<float*>(d_out);
   a.lp.id_out = static_cast<int*>(id_out);
   a.lp.iters_out = static_cast<int*>(iters_out);
+  a.lp.pass = static_cast<const unsigned char*>(pass);
+  a.lp.n_pass = n_pass;
   a.lp.n = n;
   a.lp.r = r;
   a.lp.e = e;
@@ -242,7 +255,9 @@ int annlite_beam_vec(const void* adj, const void* entry, const void* rows, const
   a.dim = dim;
   a.lanes = 1;
   a.euclid = euclid;
-  if (!beam::loop_ok(a.lp, nq, threads) || dim < 1) return (int)cudaErrorInvalidValue;
+  if (!beam::loop_ok(a.lp, nq, threads) || dim < 1 || (pass != nullptr && n_pass < 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int per = p / threads;  // sort keys per thread
   const cudaStream_t st = (cudaStream_t)stream;
   if (row_bytes == 4) return launch<4>(a, nq, per, st);

@@ -11,11 +11,17 @@ per-query ADC tables (K8), followed by an exact rerank over bf16 rows.  An
 OPQ codec's tables are built from the rotated queries (the codec's
 ``dist_mat`` rotates them once); the rerank stays in the original space.
 
-Filtered search: traversal still routes through every visited node, and the
-predicate is applied at selection (masked candidates leave the result list).
-Below ``filter_fallback_selectivity`` a masked exact scan replaces the
-traversal (the reference's brute-force fallback when candidates < limit).
-Soft-deleted rows behave like filtered ones.
+Filtered search: traversal still routes through every visited node.  The
+traversal over the rows (``beam_search_vectors``) takes the predicate
+inside: only passing rows enter the result list, which holds the best
+passing rows of every row the search scored, as hnswlib's
+``searchKnnWithFilter`` keeps them, so a list comes back full wherever the
+walk scored ``limit`` passing rows.  The table, int8 and packed traversals
+apply it at selection (masked candidates leave the ``ef`` list, as the
+reference does for every traversal).  Below ``filter_fallback_selectivity``
+a masked exact scan replaces the traversal (the reference's brute-force
+fallback when candidates < limit).  Soft-deleted rows behave like filtered
+ones.
 
 A device-built index that is synced and streams appends or updates patches
 its serving state (new codes only, fresh entry samples) instead of marking
@@ -38,7 +44,7 @@ from ..ops import BIG
 from ..ops.beam import (beam_search_int8, beam_search_packed, beam_search_pq,
                         beam_search_vectors, pack_neighbors)
 from ..ops.topk import topk
-from ..profile import span, upload, wait
+from ..profile import count, span, upload, wait
 from .base import BaseIndex
 from .device_build import DeviceVamanaBuilder
 from .vamana_lib import VamanaGraph
@@ -342,7 +348,13 @@ class GraphIndex(BaseIndex):
             dtable = self.pq_codec.dist_mat(q).to(q.device)
             d, ids = beam_search_pq(s.adj, entry, s.codes, dtable, **kw)
         else:
-            d, ids = beam_search_vectors(s.adj, entry, s.vectors, q, euclid, **kw)
+            if mask is not None:
+                # the predicate inside the traversal: its result holds passing
+                # rows only, as many as the rerank reads or the search returns
+                kw['k'] = ef if self._needs_rerank() else limit
+                count('graph.filtered_queries', q.shape[0])
+            d, ids = beam_search_vectors(s.adj, entry, s.vectors, q, euclid, passes=mask, **kw)
+            mask = None  # applied inside the traversal
         if mask is not None:
             # predicate and soft-deletes applied at selection, BEFORE the
             # rerank, so no rerank slot goes to a dead candidate
@@ -377,9 +389,11 @@ class GraphIndex(BaseIndex):
                     and float(np.mean(mask)) < self.filter_fallback_selectivity):
                 # selective predicate: traversal would mostly visit non-passing
                 # nodes — a masked exact scan instead
-                d, ids = _masked_exact_scan(s.vectors, q, mask_t,
-                                            self.metric == Metric.EUCLIDEAN,
-                                            min(limit, self.size))
+                count('graph.fallback_queries', q.shape[0])
+                with span('annlite.index.fallback'):
+                    d, ids = _masked_exact_scan(s.vectors, q, mask_t,
+                                                self.metric == Metric.EUCLIDEAN,
+                                                min(limit, self.size))
             else:
                 d, ids = self._search_device(s, q, limit, mask_t)
         with wait():

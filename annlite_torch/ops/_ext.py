@@ -62,7 +62,7 @@ SIGNATURES = {
         'annlite_beam_pq': [_P] * 7 + [_I] * 14 + [_P],
     },
     'beam_vec': {
-        'annlite_beam_vec': [_P] * 7 + [_I] * 13 + [_P],
+        'annlite_beam_vec': [_P] * 8 + [_I] * 14 + [_P],
     },
     'adc_i8': {
         'annlite_adc_i8_scores': [_P] * 7 + [_I] * 6 + [_P] * 2,

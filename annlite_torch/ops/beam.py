@@ -15,6 +15,16 @@ the same graph:
 - empty slots hold the id ``NO_ID`` and a distance ``>= BIG``;
 - the result is a slice of the distance-sorted list.
 
+A filtered search (``passes``, one bool a row; an id beyond it fails) leaves
+the traversal as it is: every row is scored and may enter the list and be
+expanded, so routes through failing rows hold, and the loop stops as it
+would without the predicate.  Only its result changes: the ``k`` best
+passing rows of every row the search scored, ordered by (distance, id), no
+id twice, padded with (``BIG``, ``NO_ID``).  A row scores the same wherever
+it is scored, so the result does not depend on the order of the merges; the
+eager loop merges after the seed and after each expansion, the kernel
+skips a merge no entry changes, and the twin merges once at the end.
+
 The loop's condition (an iteration budget, and some unexpanded node left)
 needs the device's answer on the host.  An iteration without a frontier
 changes nothing (the two stable sorts reproduce the list as it was), so the
@@ -146,14 +156,42 @@ def _sorted_seed(entry_ids, score_fn, L):
     return _sort_by(d0, ids0, exp0)
 
 
-def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None):
+def _no_results(q: int, k: int, device):
+    """An empty filtered result: ``k`` slots of (BIG, NO_ID) a query."""
+    return (torch.full((q, k), BIG, dtype=torch.float32, device=device),
+            torch.full((q, k), NO_ID, dtype=torch.int32, device=device))
+
+
+def _take_passing(res, d_new, ids_new, passes):
+    """A filtered search's result ``res = (d [Q, k], ids [Q, k])`` merged
+    with the scored entries ``(d_new, ids_new)`` that pass: the ``k`` best
+    distinct rows by (distance, id), each at its least distance, padded with
+    (BIG, NO_ID)."""
+    n = passes.shape[0]
+    ok = (d_new < BIG) & (ids_new >= 0) & (ids_new < n)
+    ok &= passes[torch.clamp(ids_new, 0, n - 1).long()]
+    all_d = torch.cat([res[0], torch.where(ok, d_new, BIG)], dim=1)
+    all_ids = torch.cat([res[1], torch.where(ok, ids_new.to(torch.int32), NO_ID)], dim=1)
+    all_d, all_ids = _sort_by(all_d, all_ids)
+    ids, d = _sort_by(all_ids, all_d)  # by (id, d): a row's copies side by side
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = (ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] < NO_ID)
+    d, ids = _sort_by(torch.where(dup, BIG, d), torch.where(dup, NO_ID, ids))  # (d, id)
+    k = res[0].shape[1]
+    return d[:, :k], ids[:, :k]
+
+
+def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None, passes=None):
     """``expand_fn(safe_sel [Q, B], sel_valid [Q, B]) -> (nbr_ids [Q, B*R],
     nbr_dists [Q, B*R])`` overrides the default expand step (adjacency
-    gather + ``score_fn``): the packed-neighbour layout uses it."""
+    gather + ``score_fn``): the packed-neighbour layout uses it.
+    ``passes [n]`` (bool): a filtered search (see the module's docstring)."""
     q = entry_ids.shape[0]
     r = adjacency.shape[1]
     dev = adjacency.device
     d, ids, exp = _sorted_seed(entry_ids, score_fn, L)
+    if passes is not None:
+        res = _take_passing(_no_results(q, k, dev), d, ids, passes)
     lane = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     slot = torch.arange(B, dtype=torch.int64, device=dev)[None, :]
     ran = 0
@@ -185,6 +223,8 @@ def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None):
             nbrs = nbrs.reshape(q, B * r)
             nd = score_fn(nbrs)
         nbrs = torch.where(nd < BIG, nbrs.to(torch.int32), NO_ID)
+        if passes is not None:
+            res = _take_passing(res, nd, nbrs, passes)
         # ---- merge: dedup by id (expanded copy wins), re-sort by d, trim --
         all_ids = torch.cat([ids, nbrs], dim=1)
         all_d = torch.cat([d, nd], dim=1)
@@ -197,6 +237,8 @@ def _beam_loop(adjacency, entry_ids, L, B, iters, k, score_fn, expand_fn=None):
         d2, ids2, exp2 = _sort_by(d_s, ids_s, exp_s)
         d, ids, exp = d2[:, :L], ids2[:, :L], exp2[:, :L]
     count('graph.iters', ran)
+    if passes is not None:
+        return res
     return d[:, :k], ids[:, :k]  # list is d-sorted: top-k is a slice
 
 
@@ -209,10 +251,13 @@ def _resolve_iters(iters, L, B):
 def beam_search_vectors(
     adjacency, entry_ids, vectors, queries, metric_euclidean: bool,
     k: int = 10, L: int = 64, B: int = 16, iters: Optional[int] = None,
+    passes: Optional[torch.Tensor] = None,
 ):
     """Full-precision beam search.  adjacency [N, R] int32 (pad -1);
     entry_ids [Q, E]; returns (dists [Q, k], ids [Q, k]) — unreachable slots
-    have id NO_ID.  ``L`` plays the role of hnswlib's ``ef``.  On the CPU the
+    have id NO_ID.  ``L`` plays the role of hnswlib's ``ef``.  ``passes``
+    (bool [n], on the rows' device): a filtered search, whose ``k`` are the
+    best passing rows it scored (see the module's docstring).  On the CPU the
     eager loop; on the card one ``beam_vec`` launch, or, beyond its plan
     (:func:`beam_vec_plan`), the eager loop.  The kernel's largest
     iteration count reaches ``graph.iters`` at the next wait."""
@@ -220,12 +265,13 @@ def beam_search_vectors(
     B = min(B, L)
     iters = _resolve_iters(iters, L, B)
     if adjacency.device.type == 'cpu' or beam_vec_plan(
-            L, B, adjacency.shape[1], vectors.shape[1]) is None:
+            L, B, adjacency.shape[1], vectors.shape[1], 0 if passes is None else k) is None:
         score = make_vector_scorer(vectors, queries.float(), bool(metric_euclidean))
-        return _beam_loop(adjacency, entry_ids, L, B, iters, k, score)
+        return _beam_loop(adjacency, entry_ids, L, B, iters, k, score, passes=passes)
     d, ids, its = beam_vec_kernel(adjacency.to(torch.int32).contiguous(),
                                   entry_ids.to(torch.int32).contiguous(), vectors.contiguous(),
-                                  queries.float().contiguous(), metric_euclidean, k, L, B, iters)
+                                  queries.float().contiguous(), metric_euclidean, k, L, B, iters,
+                                  passes)
     count_later('graph.iters', its)
     return d, ids
 
@@ -302,7 +348,7 @@ def _f32_order_key(d: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
 
 
-def _beam_ref(adjacency, entry_ids, score, L, B, iters, k):
+def _beam_ref(adjacency, entry_ids, score, L, B, iters, k, passes=None):
     """Plain twin of the persistent beam searches (``beam_pq``,
     ``beam_vec``; `csrc/beam.cuh`): their algorithm step by step, one query
     at a time, ``score(qi, ids [C]) -> d [C]`` scoring query ``qi``'s
@@ -310,7 +356,8 @@ def _beam_ref(adjacency, entry_ids, score, L, B, iters, k):
     each stable sort is a sort of unique composite keys ``value * P +
     position`` over ``P`` slots (:func:`_sort_len`), the padding after every
     real key.  Returns ``(d [Q, k], ids [Q, k], iterations [Q])``; the eager
-    loop's answer."""
+    loop's answer.  With ``passes`` (bool [n]) the result is the filtered
+    one, taken in one merge at the end from every row the query scored."""
     n, r = adjacency.shape
     q, e = entry_ids.shape
     p = _sort_len(L, B, r)
@@ -325,6 +372,7 @@ def _beam_ref(adjacency, entry_ids, score, L, B, iters, k):
     for qi in range(q):
         eids = entry_ids[qi].to(torch.int32)
         d = torch.cat([score(qi, eids), big.expand(L - e)])
+        scored = [(d[:e], eids)]
         dk = torch.cat([torch.where(d[:e] < BIG, eids, NO_ID).long(),
                         torch.full((L - e,), NO_ID, dtype=torch.int64)]) * 2 + 1
         order = sort_keys(_f32_order_key(d)) % p  # the seed: by d
@@ -340,6 +388,7 @@ def _beam_ref(adjacency, entry_ids, score, L, B, iters, k):
             nbrs = torch.cat([adjacency[sel].reshape(-1).to(torch.int32),
                               torch.full(((B - len(chosen)) * r,), -1, dtype=torch.int32)])
             nd = score(qi, nbrs)
+            scored.append((nd, nbrs))
             ndk = torch.where(nd < BIG, nbrs, NO_ID).long() * 2 + 1
             all_d, all_dk = torch.cat([d, nd]), torch.cat([dk, ndk])
             key1 = sort_keys(all_dk)  # stable by dkey
@@ -350,8 +399,14 @@ def _beam_ref(adjacency, entry_ids, score, L, B, iters, k):
             j = sort_keys(_f32_order_key(d1))[:L] % p  # stable by d
             d, dk = d1[j], dk1[j]
             it += 1
-        out_d.append(d[:k])
-        out_ids.append((dk[:k] >> 1).to(torch.int32))
+        if passes is None:
+            out_d.append(d[:k])
+            out_ids.append((dk[:k] >> 1).to(torch.int32))
+        else:
+            best = _take_passing(_no_results(1, k, 'cpu'), torch.cat([s[0] for s in scored])[None],
+                                 torch.cat([s[1] for s in scored])[None], passes)
+            out_d.append(best[0][0])
+            out_ids.append(best[1][0])
         out_it.append(it)
     return torch.stack(out_d), torch.stack(out_ids), torch.tensor(out_it, dtype=torch.int32)
 
@@ -435,23 +490,25 @@ class BeamVecPlan(NamedTuple):
     smem_bytes: int
 
 
-def beam_vec_plan(L: int, B: int, R: int, D: int) -> Optional[BeamVecPlan]:
+def beam_vec_plan(L: int, B: int, R: int, D: int, results: int = 0) -> Optional[BeamVecPlan]:
     """The plan of one vector search in one ``beam_vec`` launch, or None
     where the sort buffer would exceed :data:`MAX_SORT` slots or the state
     would not fit a CTA's shared memory (the search then takes the eager
     loop).  The layout is ``csrc/beam_vec.cu``'s: the query row (D float32,
     rounded to 16 bytes), then ``csrc/beam.cuh``'s state, 24 bytes per sort
-    slot, the selection of B ids and its count.  Threads as
+    slot, the selection of B ids and its count, and a filtered search's
+    result list of ``results`` (its k) slots of 8 bytes.  Threads as
     :func:`beam_pq_plan`'s."""
     B = min(B, L)
     p = _sort_len(L, B, R)
-    smem = (4 * D + 15) // 16 * 16 + 24 * p + (B + 2) // 2 * 8
+    smem = (4 * D + 15) // 16 * 16 + 24 * p + (B + 2) // 2 * 8 + 8 * results
     if p > MAX_SORT or smem > SMEM_LIMIT:
         return None
     return BeamVecPlan(p, p // max(2, p // 512), smem)
 
 
-def _beam_vec_ref(adjacency, entry_ids, vectors, queries, metric_euclidean, L, B, iters, k):
+def _beam_vec_ref(adjacency, entry_ids, vectors, queries, metric_euclidean, L, B, iters, k,
+                  passes=None):
     """Plain twin of ``beam_vec``: :func:`_beam_ref` with the eager loop's
     vector scorer (:func:`make_vector_scorer`), one query at a time."""
     queries, euclid = queries.float(), bool(metric_euclidean)
@@ -459,19 +516,21 @@ def _beam_vec_ref(adjacency, entry_ids, vectors, queries, metric_euclidean, L, B
     def score(qi, ids):
         return make_vector_scorer(vectors, queries[qi:qi + 1], euclid)(ids[None])[0]
 
-    return _beam_ref(adjacency, entry_ids, score, L, B, iters, k)
+    return _beam_ref(adjacency, entry_ids, score, L, B, iters, k, passes)
 
 
 def beam_vec_kernel(adjacency, entry_ids, vectors, queries, metric_euclidean: bool,
-                    k: int, L: int, B: int, iters: int):
+                    k: int, L: int, B: int, iters: int, passes=None):
     """Launch ``beam_vec`` (`csrc/beam_vec.cu`): the whole vector beam search
     of every query, one CTA each -> ``(d [Q, k], ids [Q, k], iterations
     [Q])`` as :func:`_beam_vec_ref`.  ``adjacency [N, R]`` int32,
     ``entry_ids [Q, E]`` int32 (E <= L), ``vectors [N', D]`` float32 or
     bf16 (N' <= N; an id >= N' scores BIG, as the eager scorer's), ``queries
-    [Q, D]`` float32, all contiguous on the card; B <= L, k <= L.  Raises
-    beyond the plan (:func:`beam_vec_plan`)."""
-    for t in (adjacency, entry_ids, vectors, queries):
+    [Q, D]`` float32, all contiguous on the card; B <= L, k <= L.
+    ``passes``: None, or a filtered search's predicate, bool [n'] on the
+    card.  Raises beyond the plan (:func:`beam_vec_plan`)."""
+    tensors = (adjacency, entry_ids, vectors, queries) + (() if passes is None else (passes,))
+    for t in tensors:
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError('beam_vec: expected contiguous CUDA tensors')
     n, r = adjacency.shape
@@ -480,10 +539,12 @@ def beam_vec_kernel(adjacency, entry_ids, vectors, queries, metric_euclidean: bo
             or vectors.dtype not in (torch.float32, torch.bfloat16)
             or queries.dtype != torch.float32 or vectors.dim() != 2 or vectors.shape[0] > n
             or queries.shape != (q, vectors.shape[1]) or not 1 <= e <= L
-            or not 1 <= B <= L or not 1 <= k <= L or iters < 0 or q == 0):
+            or not 1 <= B <= L or not 1 <= k <= L or iters < 0 or q == 0
+            or (passes is not None and (passes.dtype != torch.bool or passes.dim() != 1
+                                        or passes.numel() == 0))):
         raise ValueError('beam_vec: unsupported inputs')
     _check_corpus_fits(n)
-    plan = beam_vec_plan(L, B, r, vectors.shape[1])
+    plan = beam_vec_plan(L, B, r, vectors.shape[1], 0 if passes is None else k)
     if plan is None:
         raise ValueError(f'beam_vec: a sort buffer of more than {MAX_SORT} slots, '
                          'or a state beyond shared memory')
@@ -495,9 +556,10 @@ def beam_vec_kernel(adjacency, entry_ids, vectors, queries, metric_euclidean: bo
     with torch.cuda.device(dev):
         _ext.check(lib.annlite_beam_vec(
             adjacency.data_ptr(), entry_ids.data_ptr(), vectors.data_ptr(), queries.data_ptr(),
-            d.data_ptr(), ids.data_ptr(), its.data_ptr(), vectors.shape[0], r, e,
-            vectors.shape[1], q, L, B, iters, k, vectors.element_size(),
-            int(bool(metric_euclidean)), plan.sort_len, plan.threads,
+            None if passes is None else passes.data_ptr(), d.data_ptr(), ids.data_ptr(),
+            its.data_ptr(), vectors.shape[0], r, e, vectors.shape[1], q, L, B, iters, k,
+            vectors.element_size(), int(bool(metric_euclidean)),
+            0 if passes is None else passes.shape[0], plan.sort_len, plan.threads,
             _ext.stream_ptr(queries)), 'beam_vec')
     count('launch.beam_vec')
     return d, ids, its

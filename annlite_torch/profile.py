@@ -17,11 +17,14 @@ clock, around the work it launched.
 
 Names (``PERF.md`` §3): a search is the root ``annlite.search`` with
 ``annlite.filter``, ``annlite.index`` (``.prep``, ``.dispatch``, ``.wait``
-where the host blocks on the card) and ``annlite.storage.idmap`` /
+where the host blocks on the card, and inside the dispatch ``.fallback``, a
+filtered graph search's masked exact scan) and ``annlite.storage.idmap`` /
 ``.docs``; an ingest the root ``annlite.ingest`` with ``annlite.ingest.store``
 and ``annlite.ingest.index`` (the device build's ``annlite.build.<stage>``).
 Counters: ``host_syncs`` (one per wait span), ``h2d_bytes``, ``graph.iters``,
-``launch.<kernel>`` and ``kernels_built``.  A count the card computes
+``graph.fallback_queries`` and ``graph.filtered_queries`` (queries of a
+filtered graph search answered by the exact scan, and traversed with the
+predicate inside), ``launch.<kernel>`` and ``kernels_built``.  A count the card computes
 (:func:`count_later`: ``graph.iters`` of a search in one kernel) is copied
 to the host behind the work and added at the end of the first wait span
 after the copy completed, so it costs no synchronisation of its own.
@@ -106,9 +109,10 @@ def device_trace(logdir: str):
 
 WAIT = 'annlite.index.wait'
 # counters also kept per request, on the root span's record
-REQUEST_COUNTERS = ('host_syncs', 'h2d_bytes', 'graph.iters')
+REQUEST_COUNTERS = ('host_syncs', 'h2d_bytes', 'graph.iters', 'graph.fallback_queries',
+                    'graph.filtered_queries')
 _REQUEST_COL = {name: i for i, name in enumerate(REQUEST_COUNTERS)}
-# records the ring holds: 2**17, 67 bytes each (8.4 MiB): a run of a
+# records the ring holds: 2**17, 83 bytes each (10.4 MiB): a run of a
 # benchmark cell, ~10 spans a request, with room to spare
 RING_RECORDS = 1 << 17
 

@@ -105,7 +105,11 @@ line:
    after it; then ``beam_vec`` at the graph cell's shape (262,144 integer
    rows of 128 dims, the device build, ef 50, beam width 16, 8 sampled
    entries) against its plain twin and the eager loop at Q = 64 and 1, and
-   timed beside that loop (line ``beam_vec``);
+   timed beside that loop (line ``beam_vec``); then ``beam_vec`` with a
+   predicate at the filtered graph cell's shape (262,144 integer rows of 96
+   dims, ef 50, k 10) at 30, 50 and 80% of rows passing, bit-equal to its
+   plain twin and the eager loop, and timed beside the search without it
+   (line ``beam_vec_filtered``, :func:`beam_vec_filtered`);
 12. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
    of phase 7's docs, without a codec and with ``n_subvectors=64,
    rerank=0`` (``beam_pq`` through the facade): self-hits, a filtered search,
@@ -231,6 +235,77 @@ def bound(nbytes: float, ops: float, ops_per_s: float, lookups: float = 0.0,
         times['shared-memory lookups'] = lookups * lookup_bytes / SMEM_BYTES_PER_S[0] * 1e3
     of = max(times, key=times.get)
     return times[of], 'bytes' if of == 'memory bytes' else 'operations', of
+
+
+def beam_vec_filtered(bm, GraphIndex, sample_entries, cuda_ms, drive, nq: int = 64):
+    """``beam_vec`` with a predicate at the shape of the benchmark's filtered
+    graph cell: 262,144 clustered integer rows of 96 dims in 0..255, the
+    device build (R 32, l_build 200), ef 50, beam width 16, the 8 nearest of
+    4,096 sampled entries a query, ``nq`` queries, k = 10 passing rows.  At
+    30, 50 and 80% of rows passing, in the squared-L2 and the inner-product
+    branch (the cosine cell's), the kernel is held bit-equal to its plain
+    twin (ids, distances, iterations) and to the eager loop on the card, each
+    returned row passing and each list full; then timed beside the same
+    search without a predicate (k = ef, as the graph index asks).  Integer
+    rows keep every sum exact in float32 in any order."""
+    import numpy as np
+    import torch
+
+    dev = torch.device('cuda')
+    n, dim, ef, b, k = 262_144, 96, 50, 16, 10
+    rng = np.random.default_rng(SEED + 21)
+    cent = rng.integers(0, 200, (1024, dim))
+    x = np.clip(cent[rng.integers(0, 1024, n)] + rng.integers(-24, 25, (n, dim)),
+                0, 255).astype(np.float32)
+    q = np.clip(x[rng.integers(0, n, nq)] + rng.integers(-6, 7, (nq, dim)),
+                0, 255).astype(np.float32)
+    idx = GraphIndex(dim, metric='euclidean', max_degree=32, l_build=200, ef_search=ef,
+                     beam_width=b, build_mode='device')
+    idx.add_with_ids(x, np.arange(n))
+    s = idx._sync_device()
+    qt = torch.from_numpy(q).to(dev)
+    ent = sample_entries(s.entry_vecs, s.entry_ids, qt, True, 8)
+    iters = bm._resolve_iters(None, ef, b)
+    masks = {sel: torch.from_numpy(rng.random(n) < sel).to(dev) for sel in (0.3, 0.5, 0.8)}
+
+    def run(euclid, passes=None):
+        kk = ef if passes is None else k
+        return bm.beam_vec_kernel(s.adj, ent, s.vectors, qt, euclid, kk, ef, b, iters, passes)
+
+    checks, its_of = [], {}
+    for euclid in (True, False):
+        _, _, its0 = run(euclid)
+        for sel, m in masks.items():
+            name = f'beam_vec filtered {sel:.0%} {"l2" if euclid else "ip"}'
+            (d, ids, its), counts = drive(name, ['beam_vec'], lambda: run(euclid, m))
+            if counts['beam_vec'] != 1:
+                fail(f'{name}: {counts["beam_vec"]} launches')
+            twin = bm._beam_vec_ref(s.adj.cpu(), ent.cpu(), s.vectors.cpu(), qt.cpu(), euclid,
+                                    ef, b, iters, k, m.cpu())
+            if not all(map(torch.equal, (d.cpu(), ids.cpu(), its.cpu()), twin)):
+                fail(f'{name}: ids, distances or iterations differ from the plain twin')
+            eager = bm._beam_loop(s.adj, ent, ef, b, iters, k,
+                                  bm.make_vector_scorer(s.vectors, qt, euclid), passes=m)
+            if not all(map(torch.equal, (d, ids), eager)):
+                fail(f'{name}: ids or distances differ from the eager loop')
+            if not torch.equal(its, its0):
+                fail(f'{name}: the walk differs from the one without the predicate')
+            if not bool((d < bm.BIG).all()) or not bool(m[ids.long()].all()):
+                fail(f'{name}: a short list or a row outside the mask')
+            checks.append(f'{name}: bit-equal to the plain twin and the eager loop, '
+                          f'every list full and passing')
+        its_of['l2' if euclid else 'ip'] = {'max': int(its0.max()),
+                                            'mean': float(its0.float().mean())}
+    ms = {'none': cuda_ms(lambda: run(True))}
+    for sel, m in masks.items():
+        ms[f'{sel:.0%}'] = cuda_ms(lambda: run(True, m))
+    emit({'phase': 'beam_vec_filtered', 'n': n, 'dim': dim, 'ef': ef, 'beam_width': b,
+          'w': s.adj.shape[1], 'k': k, 'entry_width': 8, 'iters_budget': iters,
+          'plan': bm.beam_vec_plan(ef, b, s.adj.shape[1], dim, k)._asdict(),
+          'checks': checks, 'iterations_q64': its_of, 'ms_l2_q64': ms,
+          'launches_per_search': 1})
+    del idx, s, qt, ent, masks
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1953,6 +2028,7 @@ def main() -> int:
           'bound_ms_q64': bounds['beam_vec'][0], 'launches_per_search': 1})
     del vidx, vs, vq_t, vent, vx, vd_k, vi_k, vits, counted
     torch.cuda.empty_cache()
+    beam_vec_filtered(bm, GraphIndex, _sample_entries, cuda_ms, drive, nq)
 
     # ---------------- 12. the facade with the graph index ----------------
     # the first 20,000 of phase 7's docs, without a codec and with PQ64 at

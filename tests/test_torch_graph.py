@@ -116,21 +116,38 @@ def test_cosine_within_tolerance(built):
 
 @pytest.mark.parametrize('selectivity', [0.5, 0.1])
 def test_mask_branches_equal(built, selectivity):
-    """At 50% the mask is applied at selection after traversal; at 10%
-    (below filter_fallback_selectivity 0.25) a masked exact scan runs."""
+    """At 10% (below filter_fallback_selectivity 0.25) a masked exact scan
+    runs in both packages: equal.  At 50% the JAX index applies the mask to
+    the traversal's ``ef`` list after it (its lists may come back short);
+    the port's traversal takes the predicate inside: every list full, every
+    row passing at its exact distance, and recall inside the filter no lower
+    than the JAX index's on the same state."""
     j, t = _pair(built)
-    q = built[1]
+    x, q, _ = built
     mask = np.random.default_rng(7).random(N) < selectivity
     td, ti = t.search(q, limit=10, mask=mask)
-    _eq((td, ti), j.search(q, limit=10, mask=mask))
+    jd, ji = (np.asarray(a) for a in j.search(q, limit=10, mask=mask))
     assert mask[ti[td < 1e37]].all()
+    if selectivity < t.filter_fallback_selectivity:
+        _eq((td, ti), (jd, ji))
+        return
+    assert (td < 1e37).all() and mask[ti].all() and all(len(set(r)) == 10 for r in ti)
+    ex = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1, dtype=np.float32)
+    np.testing.assert_array_equal(td, np.take_along_axis(ex, ti, axis=1))
+    kth = np.sort(np.where(mask[None, :], ex, np.inf), axis=1)[:, 9:10]
+
+    def hits(d, ids):  # answers inside the exact 10th distance among passing rows
+        got = np.take_along_axis(ex, np.clip(ids, 0, N - 1), axis=1)
+        return int(((d < 1e37) & (got <= kth)).sum())
+
+    assert hits(td, ti) >= hits(jd, ji)
 
 
 def test_mask_every_row_passes_skips_the_mask_step(built, monkeypatch):
     """A mask that passes every row (the container's alive bitmap with
     nothing deleted) selects nothing away: the search neither uploads it nor
-    runs the mask step,
-    whose answer on the traversal's distance-sorted list is that list, and
+    gives the traversal a predicate, whose answer would be the
+    distance-sorted list as it is (as the mask step's on that list), and
     answers as the JAX index does with the mask."""
     j, t = _pair(built)
     q = built[1]
@@ -140,16 +157,18 @@ def test_mask_every_row_passes_skips_the_mask_step(built, monkeypatch):
     d, ids = t._search_device(s, torch.from_numpy(q), 10, None)
     _eq(tg._mask_candidates(d, ids, torch.from_numpy(mask)), (d, ids))
     seen = []
-    real = tg._mask_candidates
-    monkeypatch.setattr(tg, '_mask_candidates', lambda *a: seen.append(1) or real(*a))
+    real = tg.beam_search_vectors
+    monkeypatch.setattr(tg, 'beam_search_vectors',
+                        lambda *a, **kw: seen.append(kw.get('passes') is not None)
+                        or real(*a, **kw))
     h2d = profile.snapshot()['counters'].get('h2d_bytes', 0)
     got = t.search(q, limit=10, mask=mask)
-    assert seen == []
+    assert seen == [False]
     assert profile.snapshot()['counters']['h2d_bytes'] - h2d == q.nbytes  # no mask upload
     _eq(got, want)
     _eq(got, j.search(q, limit=10, mask=mask))
     t.search(q, limit=10, mask=mask[:-1])  # a shorter mask drops the last row
-    assert seen == [1]
+    assert seen == [False, True]
 
 
 def test_deletes_updates_and_appends_equal(built):
