@@ -311,7 +311,7 @@ class CellContainer:
         # one batched row->doc-id lookup for ALL queries' candidates (a
         # per-row SELECT loop here dominated facade serving latency)
         valid = d < _SCORE_MISSING
-        rows = idx[valid].tolist()
+        rows = idx[valid]
         with span('annlite.storage.idmap'):
             flat_ids = self.cell_table.get_docids_by_rows(rows)
         all_dists, all_ids, at = [], [], 0

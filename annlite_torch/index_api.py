@@ -491,9 +491,6 @@ class AnnLite:
         mapping per call.  ``query [Q, D]`` -> ``(dists [Q, limit]
         np.ndarray, doc_ids [Q][limit] list)``.  Rebuild after writes."""
         run = self.device_searcher(limit=limit, mask=mask)
-        # materialize the row->doc-id array now: the per-call mapping becomes
-        # a numpy index instead of a chunked SELECT
-        self._container.cell_table.docids_array()
 
         def search(query):
             d, rows = run(query)
@@ -508,9 +505,7 @@ class AnnLite:
         if isinstance(rows, torch.Tensor):
             rows = rows.cpu().numpy()
         rows = np.asarray(rows)
-        flat = self._container.cell_table.get_docids_by_rows(
-            [int(r) for r in rows.reshape(-1)]
-        )
+        flat = self._container.cell_table.get_docids_by_rows(rows.reshape(-1))
         if rows.ndim <= 1:
             return flat
         w = rows.shape[-1]

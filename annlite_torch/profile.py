@@ -24,10 +24,12 @@ and ``annlite.ingest.index`` (the device build's ``annlite.build.<stage>``).
 Counters: ``host_syncs`` (one per wait span), ``h2d_bytes``, ``graph.iters``,
 ``graph.fallback_queries`` and ``graph.filtered_queries`` (queries of a
 filtered graph search answered by the exact scan, and traversed with the
-predicate inside), ``launch.<kernel>`` and ``kernels_built``.  A count the card computes
-(:func:`count_later`: ``graph.iters`` of a search in one kernel) is copied
-to the host behind the work and added at the end of the first wait span
-after the copy completed, so it costs no synchronisation of its own.
+predicate inside), ``storage.idmap_builds`` (full scans that build the
+row→doc-id array), ``launch.<kernel>`` and ``kernels_built``.  A count the
+card computes (:func:`count_later`: ``graph.iters`` of a search in one
+kernel) is copied to the host behind the work and added at the end of the
+first wait span after the copy completed, so it costs no synchronisation of
+its own.
 """
 import cProfile
 import contextlib

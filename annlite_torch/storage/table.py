@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..profile import count
+
 TYPE_MAP = {
     int: 'INTEGER',
     float: 'FLOAT',
@@ -159,9 +161,9 @@ class CellTable(Table):
                 f'CREATE INDEX IF NOT EXISTS idx_{self.name}_{c} ON {self.name} ({c})'
             )
         self._columns_cache: Optional[Dict[str, np.ndarray]] = None
-        # row→doc-id cache for the serving hot path; append-only under
-        # insert, UNCHANGED by soft delete/undelete (they only flip _alive),
-        # dropped by any raw execute()/load() (compact, restore, ...)
+        # row→doc-id array of every lookup (docids_array); append-only
+        # under insert, UNCHANGED by soft delete/undelete (they only flip
+        # _alive), dropped by any raw execute()/load() (compact, restore, ...)
         self._docids_cache: Optional[np.ndarray] = None
 
     def execute(self, sql: str, params=()):
@@ -182,9 +184,12 @@ class CellTable(Table):
             self._docids_cache = None
 
     def load(self, source):
-        self._docids_cache = None
         self._invalidate()
-        return super().load(source)
+        try:
+            return super().load(source)
+        finally:
+            # after the restore, as in execute()
+            self._docids_cache = None
 
     @property
     def columns(self) -> List[str]:
@@ -341,14 +346,16 @@ class CellTable(Table):
         return r[0][0] if r else None
 
     def docids_array(self) -> np.ndarray:
-        """Materialized row→doc-id object array (serving hot path: indexing
-        it is ~µs vs ~1.2 ms for the chunked SELECT at batch-64×top-10).
-        Build cost one full scan, then kept valid incrementally: inserts
-        append, soft delete/undelete don't change the mapping, raw
-        ``execute``/``load`` drop it."""
+        """Materialized row→doc-id object array, on which every
+        :meth:`get_docids_by_rows` is answered.  Built by one full scan
+        (counted in ``storage.idmap_builds``) when absent, then kept valid
+        incrementally: inserts append, soft delete/undelete and
+        ``update_columns`` don't change the mapping, raw
+        ``execute``/``executemany``/``load`` drop it."""
         with self._lock:  # non-reentrant: use _conn directly in here
             arr = self._docids_cache
             if arr is None:
+                count('storage.idmap_builds')
                 n = self._conn.execute(
                     f'SELECT COALESCE(MAX(_id), 0) FROM {self.name}'
                 ).fetchone()[0]
@@ -363,35 +370,18 @@ class CellTable(Table):
             # self._docids_cache here could return None to the caller
             return arr
 
-    def get_docids_by_rows(self, rows: List[int]) -> List[Optional[str]]:
-        """Row→doc-id for a batch — a cached-array lookup when the cache is
-        materialized (see ``docids_array``), else ONE ``SELECT ... WHERE _id
-        IN (...)`` per ≤900-key chunk (SQLite bound-variable ceiling). The
-        serving hot path maps every candidate of every query through here
-        (reference per-row loop: `annlite/container.py:213-260`)."""
-        out: List[Optional[str]] = [None] * len(rows)
-        if not rows:
-            return out
-        cache = self._docids_cache
-        if cache is not None:
-            n = len(cache)
-            return [cache[r] if 0 <= r < n else None
-                    for r in np.asarray(rows, dtype=np.int64)]
-        pos: dict = {}
-        for j, row in enumerate(rows):
-            pos.setdefault(int(row) + 1, []).append(j)
-        keys = list(pos)
-        with self._lock:
-            for lo in range(0, len(keys), 900):
-                chunk = keys[lo : lo + 900]
-                sql = (
-                    f'SELECT _id, _doc_id FROM {self.name} '
-                    f'WHERE _id IN ({", ".join("?" for _ in chunk)})'
-                )
-                for _id, doc_id in self._conn.execute(sql, chunk):
-                    for j in pos[_id]:
-                        out[j] = doc_id
-        return out
+    def get_docids_by_rows(self, rows) -> List[Optional[str]]:
+        """Row→doc-id for a batch (``rows``: a list or an integer array), by
+        one take from :meth:`docids_array`: a row outside the table maps to
+        None, a soft-deleted row to its doc id.  The serving hot path maps
+        every candidate of every query through here (reference per-row
+        loop: `annlite/container.py:213-260`)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        arr = self.docids_array()
+        out = np.full(len(rows), None, dtype=object)
+        inside = (rows >= 0) & (rows < len(arr))
+        out[inside] = arr[rows[inside]]
+        return out.tolist()
 
     def get_row_by_docid(self, doc_id: str) -> Optional[int]:
         r = self.query_all(

@@ -252,3 +252,82 @@ def test_doc_rejects_unknown_types():
         tdoc.unpackb(b'\xc1')
     with pytest.raises(ValueError):
         tdoc.unpackb(tdoc.packb({'a': 1}) + b'\x00')
+
+
+# ------------------- the id map across writes, flat and graph -------------------
+
+def _fresh_answers(kind_kw, path, state, q, k):
+    """Answers of a new store built from ``state`` (id -> (row, price))."""
+    fresh = TAnnLite(16, metric='euclidean', columns=COLUMNS, data_path=path,
+                     device='cpu', **kind_kw)
+    fresh.index([tdoc.Doc(id=i, embedding=v, tags={'price': p})
+                 for i, (v, p) in sorted(state.items())])
+    try:
+        return _answers(fresh, q, k)
+    finally:
+        fresh.close()
+
+
+def _answers(ann, q, k):
+    d, ids = ann.search_numpy(q, limit=k)
+    docs = ann.search([tdoc.Doc(id=f'q{j}', embedding=v) for j, v in enumerate(q)], limit=k)
+    return ([list(r) for r in d], ids,
+            [[m.id for m in doc.matches] for doc in docs],
+            [[m.score for m in doc.matches] for doc in docs],
+            [[m.tags['price'] for m in doc.matches] for doc in docs])
+
+
+@pytest.mark.parametrize('kind_kw', [{}, {'index_type': 'graph', 'graph_build_mode': 'device',
+                                          'ef_search': 512}], ids=['flat', 'graph'])
+def test_searches_between_writes_equal_a_fresh_store(tmp_path, kind_kw):
+    """search_numpy and search, between index, update, delete, backup and
+    restore, and clear, answer as a store built anew from the documents then
+    held; no id of a row that a write replaced or removed comes back."""
+    rng = np.random.default_rng(4)
+    k = 10
+    ann = TAnnLite(16, metric='euclidean', columns=COLUMNS, data_path=tmp_path / 'a',
+                   device='cpu', **kind_kw)
+    state = {}
+    fresh_n = iter(range(100))
+
+    def put(ids, write=ann.index):
+        x = rng.standard_normal((len(ids), 16)).astype(np.float32)
+        write([tdoc.Doc(id=i, embedding=v, tags={'price': float(j)})
+               for j, (i, v) in enumerate(zip(ids, x))])
+        state.update((i, (v, float(j))) for j, (i, v) in enumerate(zip(ids, x)))
+
+    def check(step):
+        q = np.stack([v for _, (v, _) in sorted(state.items())[:12]]) + 0.05
+        q = np.concatenate([q, rng.standard_normal((4, 16)).astype(np.float32)])
+        got = _answers(ann, q, k)
+        want = _fresh_answers(kind_kw, tmp_path / f'f{next(fresh_n)}', state, q, k)
+        for a, b in zip(got, want):
+            assert a == b, step
+        assert {i for r in got[1] + got[2] for i in r} <= set(state), step
+
+    put([f'd{i}' for i in range(120)])
+    put([f'd{i}' for i in range(120, 200)])
+    check('index')
+    put([f'd{i}' for i in range(200, 240)])
+    check('index again')
+    put([f'd{i}' for i in range(0, 200, 10)], write=ann.update)
+    check('update')
+    ann.delete([f'd{i}' for i in range(1, 200, 10)])
+    for i in range(1, 200, 10):
+        del state[f'd{i}']
+    check('delete')
+    ann.backup('bk')
+    saved = dict(state)
+    ann.delete([f'd{i}' for i in range(2, 200, 10)])
+    for i in range(2, 200, 10):
+        del state[f'd{i}']
+    put([f'e{i}' for i in range(30)])
+    check('after backup')
+    ann.restore('bk')
+    state = saved
+    check('restore')
+    ann.clear()
+    state.clear()
+    put([f'n{i}' for i in range(100)])
+    check('clear')
+    ann.close()

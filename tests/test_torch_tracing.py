@@ -143,6 +143,24 @@ def test_counters_of_a_search(store):
     assert (rec['graph.iters'][root] > 0) == (kind == 'graph')
 
 
+def test_idmap_is_built_once(store):
+    """The store's first search built the row→doc-id array: each later
+    search records one ``annlite.storage.idmap`` span under its
+    ``annlite.search`` and no ``storage.idmap_builds``."""
+    _, ann, x = store
+    builds = lambda: profile.snapshot()['counters'].get('storage.idmap_builds', 0)
+    before = builds()
+    mark = _mark()
+    for lo in range(0, 64, 8):
+        ann.search_numpy(x[lo:lo + 8], limit=5)
+    assert builds() == before
+    rec = _since(mark)
+    idmap = rec['name'] == 'annlite.storage.idmap'
+    assert idmap.sum() == 8
+    roots = rec['seq'][rec['root']]
+    assert sorted(rec['parent'][idmap].tolist()) == sorted(roots.tolist())
+
+
 def test_ingest_spans(tmp_path):
     mark = _mark()
     ann, _ = _store(tmp_path, 'graph')
