@@ -8,7 +8,29 @@ import numpy as np
 from ..enums import ExpandMode, Metric, parse_metric
 
 
+def padded_mask(mask: Optional[np.ndarray], size: int, n_pad: int) -> np.ndarray:
+    """The int8 row mask the kernels read: ``n_pad`` rows, ``mask``'s
+    first ``size`` rows (all ones when ``mask`` is None), 0 after them."""
+    m = np.zeros(n_pad, dtype=np.int8)
+    if mask is None:
+        m[:size] = 1
+    else:
+        m[:size] = np.asarray(mask[:size], dtype=np.int8)
+    return m
+
+
 class BaseIndex(abc.ABC):
+    # the container passes each row's IVF cells to add_with_ids and search
+    wants_cells = False
+    # update_with_ids rewrites rows in place: an update that keeps its cell
+    # keeps its row instead of a dead-mark and an append
+    supports_inplace_update = False
+    # search widens its candidate pool whenever it is given a mask, so an
+    # all-pass mask and no mask answer differently
+    widens_for_mask = False
+    # the share of rows the index keeps dead itself (None: it keeps none)
+    dead_fraction: Optional[float] = None
+
     def __init__(
         self,
         dim: int,

@@ -25,7 +25,7 @@ from ..ops import BIG
 from ..ops.scan import quantize_rows_int4, quantize_rows_int8, scan_topk
 from ..ops.topk import topk
 from ..profile import span, upload, wait
-from .base import BaseIndex
+from .base import BaseIndex, padded_mask
 from .buffer import DeviceBuffer
 
 
@@ -109,14 +109,6 @@ class FlatIndex(BaseIndex):
         elif self.scan_mode == 'bf16':
             self._scan_buf.write(rows, x)
 
-    def _device_mask(self, n_pad: int, mask: Optional[np.ndarray]) -> torch.Tensor:
-        m = np.zeros(n_pad, dtype=np.int8)
-        if mask is None:
-            m[: self.size] = 1
-        else:
-            m[: self.size] = np.asarray(mask[: self.size], dtype=np.int8)
-        return upload(m, self.device)
-
     def search(self, query: np.ndarray, limit: int = 10, mask: Optional[np.ndarray] = None):
         q = np.asarray(query, dtype=np.float32).reshape(-1, self.dim)
         with span('annlite.index.prep'):
@@ -150,7 +142,7 @@ class FlatIndex(BaseIndex):
         the device, normalized for cosine -> ``(dists, rows)``."""
         x = self._buf.device_view()
         norms = self._norms.device_view()
-        m = self._device_mask(x.shape[0], mask)
+        m = upload(padded_mask(mask, self.size, x.shape[0]), self.device)
         k = min(limit, max(self.size, 1))
         metric = self.metric
         mode = self.scan_mode

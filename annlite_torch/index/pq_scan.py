@@ -21,7 +21,8 @@ from ..math import l2_normalize
 from ..ops import BIG
 from ..ops.adc import adc_topk
 from ..ops.topk import topk
-from .base import BaseIndex
+from ..profile import upload
+from .base import BaseIndex, padded_mask
 from .buffer import DeviceBuffer
 
 
@@ -142,13 +143,8 @@ class PQScanIndex(BaseIndex):
         dtable = self.pq_codec.dist_mat(query).to(self.device)
         codes_t = self._codes_t.device_view()
         n_pad = codes_t.shape[1]
-        m = np.zeros(n_pad, dtype=np.int8)
-        if mask is None:
-            m[: self.size] = 1
-        else:
-            m[: self.size] = np.asarray(mask[: self.size], dtype=np.int8)
         k = min(limit, max(self.size, 1))
-        mt = torch.from_numpy(m).to(self.device)
+        mt = upload(padded_mask(mask, self.size, n_pad), self.device)
         if self.rerank > 0:
             r = min(max(self.rerank, k), n_pad)
             # adc_topk finishes the first-pass top-k with the deep select on

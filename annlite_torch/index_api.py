@@ -335,7 +335,7 @@ class AnnLite:
         -1 pads) when ``n_assign > 1``; cell 0 without a VQ codec."""
         if self._vq_codec is None:
             return np.zeros(x.shape[0], dtype=np.int64)
-        if self.n_assign > 1 and getattr(self._container.index, 'wants_cells', False):
+        if self.n_assign > 1 and self._container.index.wants_cells:
             # boundary points are stored in up to n_assign cells (the IVF
             # index dedups at search)
             return self._vq_codec.encode_multi(x, n_assign=self.n_assign,
@@ -377,10 +377,7 @@ class AnnLite:
         thr = self.auto_compact_dead_fraction
         if thr is None:
             return
-        dead = getattr(self._container.index, 'dead_fraction', None)
-        if dead is None:
-            alive = self._container._alive
-            dead = float((~alive).sum()) / len(alive) if len(alive) else 0.0
+        dead = self._container.dead_fraction
         if dead > thr:
             self.logger.info(f'auto-compact: dead fraction {dead:.2f} > {thr:.2f}')
             self.compact()
@@ -469,13 +466,7 @@ class AnnLite:
                 raise ValueError(f'{type(idx).__name__}.device_searcher takes no mask')
             run = idx.device_searcher(limit=limit)
         else:
-            alive = self._container._alive
-            if mask is None:
-                mask = alive
-            else:
-                u = np.asarray(mask[: len(alive)]).astype(bool)
-                mask = u & alive[: len(u)]
-            run = idx.device_searcher(limit=limit, mask=mask)
+            run = idx.device_searcher(limit=limit, mask=container.row_mask(mask))
         proj = self._projector_codec
 
         def search(query):
@@ -519,10 +510,11 @@ class AnnLite:
         idx = self._container.index
         if hasattr(idx, 'check_integrity'):
             return idx.check_integrity()
+        n_rows = self._container.index_size
         return {
             'n': int(idx.size),
-            'table_rows': int(self._container.cell_table.size),
-            'ok': int(idx.size) >= int(self._container.cell_table.size),
+            'table_rows': int(n_rows),
+            'ok': int(idx.size) >= int(n_rows),
         }
 
     def filter(
@@ -635,10 +627,7 @@ class AnnLite:
             shutil.rmtree(snap)
         try:
             snap.mkdir(parents=True, exist_ok=False)
-            self._container.cell_table.dump(snap / 'cells.db')
-            self._container.meta_table.dump(snap / 'metas.db')
-            state = self._container.index.state_arrays()
-            np.savez_compressed(snap / 'index_state.npz', **state)
+            self._container.dump_snapshot(snap)
             return snap
         except Exception:
             shutil.rmtree(snap, ignore_errors=True)
@@ -695,34 +684,7 @@ class AnnLite:
 
     def _restore_from_snapshot(self, snap: Path):
         self.logger.info(f'restoring from snapshot {snap}')
-        c = self._container
-        c.cell_table.load(snap / 'cells.db')
-        c.cell_table._invalidate()
-        c.meta_table.load(snap / 'metas.db')
-        with np.load(snap / 'index_state.npz', allow_pickle=False) as z:
-            state = {k: z[k] for k in z.files}
-        c.index = None  # drop the old index's device buffers first
-        c.index = self._index_from_state(state)
-        self._rebuild_columns_from_table()
-
-    def _reset_columns(self):
-        c = self._container
-        c._alive = np.zeros(0, dtype=bool)
-        c._cells = np.zeros(0, dtype=np.int32)
-        for name in c._col_names:
-            c._columns_np[name] = c._empty_col(name)
-
-    def _rebuild_columns_from_table(self):
-        c = self._container
-        cols = c.cell_table.columns_arrays()
-        n = len(cols['_alive'])
-        # hard reset (stale longer arrays would leave ghost alive rows)
-        self._reset_columns()
-        c._grow_columns(n)
-        c._alive[:n] = cols['_alive']
-        c._cells[:n] = cols['_cell']
-        for name in c._col_names:
-            c._columns_np[name][:n] = cols[name]
+        self._container.load_snapshot(snap, self._index_from_state)
 
     def _rebuild_index_from_local(self):
         """Re-insert everything from the durable doc store."""
@@ -760,15 +722,7 @@ class AnnLite:
         """Reclaim dead rows (deletes/updates leave bitmap holes): rebuild the
         index + metadata from the durable doc store."""
         self._check_writable()
-        c = self._container
-        c.index.reset()
-        c.cell_table.execute(f'DELETE FROM {c.cell_table.name}')
-        c.cell_table.execute(
-            f"DELETE FROM sqlite_sequence WHERE name='{c.cell_table.name}'"
-        )
-        c.cell_table._invalidate()
-        c.meta_table.execute(f'DELETE FROM {c.meta_table.name}')
-        self._reset_columns()
+        self._container.reset_rows()
         self._rebuild_index_from_local()
 
     def backup(

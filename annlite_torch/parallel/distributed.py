@@ -32,8 +32,9 @@ import torch
 
 from ..codecs.kmeans import _centroid_update
 from ..device import resolve_device
+from ..index.base import padded_mask
 from ..ops.topk import topk
-from .mesh import (Mesh, _lloyd_stats, _padded_codes, _padded_mask, _per_shard, _place,
+from .mesh import (Mesh, _lloyd_stats, _padded_codes, _per_shard, _place,
                    make_mesh, sharded_adc_topk)
 
 HOST_AXIS = 'host'
@@ -126,7 +127,7 @@ def shard_codes_2d(mesh: HybridMesh, codes_t: np.ndarray) -> List[torch.Tensor]:
 
 def shard_mask_2d(mesh: HybridMesh, mask: np.ndarray, n_pad: int) -> List[torch.Tensor]:
     """An int8 row mask padded with 0 to ``n_pad`` rows, split host-major."""
-    return put_sharded(mesh, _padded_mask(mask, n_pad), 0)
+    return put_sharded(mesh, padded_mask(mask, len(mask), n_pad), 0)
 
 
 def replicate_2d(mesh: HybridMesh, x: np.ndarray) -> List[torch.Tensor]:

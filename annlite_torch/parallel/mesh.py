@@ -27,6 +27,7 @@ import torch
 from ..codecs.kmeans import _centroid_update, _onehot_sums, _pairwise_sq
 from ..device import resolve_device
 from ..enums import Metric
+from ..index.base import padded_mask
 from ..index.graph import _rerank, _sample_entries
 from ..math import dot_f32
 from ..ops import BIG
@@ -95,13 +96,6 @@ def _padded_codes(codes_t: np.ndarray, n_shards: int) -> np.ndarray:
     return codes_t if n_pad == n else np.pad(codes_t, ((0, 0), (0, n_pad - n)))
 
 
-def _padded_mask(mask: np.ndarray, n_pad: int) -> np.ndarray:
-    """An int8 row mask padded with 0 to ``n_pad`` rows."""
-    out = np.zeros(n_pad, dtype=np.int8)
-    out[: len(mask)] = np.asarray(mask).astype(np.int8)
-    return out
-
-
 def shard_codes(mesh: Mesh, codes_t: np.ndarray) -> List[torch.Tensor]:
     """Transposed codes ``[M, N]`` with N sharded over the mesh (N padded with
     zero codes to a multiple of P): one ``[M, N/P]`` tensor per shard."""
@@ -110,7 +104,7 @@ def shard_codes(mesh: Mesh, codes_t: np.ndarray) -> List[torch.Tensor]:
 
 def shard_mask(mesh: Mesh, mask: np.ndarray, n_pad: int) -> List[torch.Tensor]:
     """An int8 row mask padded with 0 to ``n_pad`` rows, sharded on N."""
-    return _split(mesh, _padded_mask(mask, n_pad), 0)
+    return _split(mesh, padded_mask(mask, len(mask), n_pad), 0)
 
 
 def shard_rows(mesh: Mesh, x: np.ndarray, n_pad: Optional[int] = None,

@@ -404,6 +404,9 @@ class ShardedGraphIndex(BaseIndex):
     ``build_mode='device'``), and a search beams every sub-graph and merges
     (`mesh.sharded_beam_topk`)."""
 
+    # a mask widens each shard's beam and rerank to 4 * limit
+    widens_for_mask = True
+
     def __init__(
         self,
         dim: int,

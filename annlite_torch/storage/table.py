@@ -11,7 +11,7 @@ device-array row.  ``MetaTable`` keeps the reference's address-book API
 `storage/table.py:379-462`) on top of the same database.
 
 Columnar tag arrays for the device bitmask path are materialized from
-SQLite on demand and cached until the table changes.
+SQLite on demand.
 """
 import datetime
 import sqlite3
@@ -160,7 +160,6 @@ class CellTable(Table):
             self.execute(
                 f'CREATE INDEX IF NOT EXISTS idx_{self.name}_{c} ON {self.name} ({c})'
             )
-        self._columns_cache: Optional[Dict[str, np.ndarray]] = None
         # row→doc-id array of every lookup (docids_array); append-only
         # under insert, UNCHANGED by soft delete/undelete (they only flip
         # _alive), dropped by any raw execute()/load() (compact, restore, ...)
@@ -184,7 +183,6 @@ class CellTable(Table):
             self._docids_cache = None
 
     def load(self, source):
-        self._invalidate()
         try:
             return super().load(source)
         finally:
@@ -198,9 +196,6 @@ class CellTable(Table):
     @property
     def existed_columns(self) -> List[Tuple[str, str]]:
         return list(self._columns)
-
-    def _invalidate(self):
-        self._columns_cache = None
 
     # ----- writes -----
 
@@ -240,7 +235,6 @@ class CellTable(Table):
                     )
                 else:  # misaligned (shouldn't happen) — rebuild lazily
                     self._docids_cache = None
-        self._invalidate()
         return list(range(start, start + len(rows)))
 
     def update_columns(self, doc_ids: List[str], tag_rows: List[Dict]):
@@ -259,7 +253,6 @@ class CellTable(Table):
                 for d, t in zip(doc_ids, tag_rows)
             ])
             self._conn.commit()
-        self._invalidate()
 
     def delete(self, doc_ids: List[str]) -> List[int]:
         """Soft-delete by doc id; returns the affected global rows."""
@@ -277,7 +270,6 @@ class CellTable(Table):
                         f'UPDATE {self.name} SET _alive = 0 WHERE _id = ?', (r[0],)
                     )
             self._conn.commit()
-        self._invalidate()
         return rows
 
     def undelete(self, doc_ids: List[str]) -> List[int]:
@@ -307,7 +299,6 @@ class CellTable(Table):
                 )
                 rows.append(r[0] - 1)
             self._conn.commit()
-        self._invalidate()
         return rows
 
     # ----- reads -----
@@ -420,8 +411,6 @@ class CellTable(Table):
     def columns_arrays(self) -> Dict[str, np.ndarray]:
         """Materialize ``{col: np.ndarray[n_rows]}`` (+ ``_cell``/``_alive``)
         aligned with global rows; dead/never-written rows hold defaults."""
-        if self._columns_cache is not None:
-            return self._columns_cache
         n = self.n_rows
         cols = {c: np.zeros(n, dtype=_NP_BY_SQL[t]) for c, t in self._columns}
         for c, t in self._columns:
@@ -439,7 +428,6 @@ class CellTable(Table):
                 v = rec[3 + j]
                 if v is not None:
                     cols[c][i] = v
-        self._columns_cache = cols
         return cols
 
     def get_latest_commit(self):

@@ -331,3 +331,81 @@ def test_searches_between_writes_equal_a_fresh_store(tmp_path, kind_kw):
     put([f'n{i}' for i in range(100)])
     check('clear')
     ann.close()
+
+
+# ------------------- the container's row mask -------------------
+
+def _fused(alive, user):
+    """The alive bitmap fused with a caller's mask, as the facade's
+    device_searcher did before the container's row_mask."""
+    u = np.asarray(user[: len(alive)]).astype(bool)
+    return u & alive[: len(u)]
+
+
+def test_container_row_mask(pair, tmp_path):
+    """No filter and no dead row: no mask at all.  After a delete the alive
+    bitmap, with a filter alive AND filter, both equal to the JAX container's
+    masks; row_mask(user) is the alive bitmap fused with the user's mask.  An
+    empty store reads no filter, as the JAX container does."""
+    t, j, x, prices = pair
+    unknown = {'colour': {'$eq': 'red'}}
+    for mod, ann in (('t', TAnnLite(D, columns=COLUMNS, data_path=tmp_path / 'et',
+                                    device='cpu')),
+                     ('j', JAnnLite(D, columns=COLUMNS, data_path=tmp_path / 'ej'))):
+        assert ann._container._build_mask(unknown) is None, mod
+        assert ann.search_numpy(x[:2], filter=unknown, limit=3)[1] == [[], []], mod
+        ann.close()
+    tc, jc = t._container, j._container
+    flt = {'$and': [{'price': {'$lt': 40.0}}, {'brand': {'$eq': 'a'}}]}
+    user = np.zeros(N + 7, bool)
+    user[::3] = True
+    assert tc._build_mask(None) is None and tc._build_mask({}) is None
+    assert tc.row_mask() is None
+    np.testing.assert_array_equal(tc._build_mask(flt), jc._build_mask(flt))
+    np.testing.assert_array_equal(tc.row_mask(user), _fused(jc._alive, user))
+    t.delete(['d3', 'd10'])
+    j.delete(['d3', 'd10'])
+    alive = np.ones(N, bool)
+    alive[[3, 10]] = False
+    for filter_ in (None, flt):
+        got = tc._build_mask(filter_)
+        np.testing.assert_array_equal(got, jc._build_mask(filter_))
+        assert got is not tc._build_mask(filter_)
+    np.testing.assert_array_equal(tc._build_mask(None), alive)
+    np.testing.assert_array_equal(tc.row_mask(), alive)
+    for u in (user, user[:100], user[:N]):
+        np.testing.assert_array_equal(tc.row_mask(u), _fused(jc._alive, u))
+    assert tc.dead_fraction == 2 / N
+
+
+def test_facade_reads_no_private_state_of_the_container():
+    """index_api.py reads no underscore attribute of the container, of its
+    tables or of its index: through ``self._container`` or a local bound to
+    it (or to a part of it)."""
+    import ast
+    import pathlib
+
+    import annlite_torch.index_api as api
+
+    tree = ast.parse(pathlib.Path(api.__file__).read_text())
+
+    def rooted(node, aliases):
+        while isinstance(node, ast.Attribute):
+            if (node.attr == '_container' and isinstance(node.value, ast.Name)
+                    and node.value.id == 'self'):
+                return True
+            node = node.value
+        return isinstance(node, ast.Name) and node.id in aliases
+
+    aliases = set()
+    while True:
+        found = {tgt.id for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                 and rooted(n.value, aliases)
+                 for tgt in n.targets if isinstance(tgt, ast.Name)}
+        if found <= aliases:
+            break
+        aliases |= found
+    bad = [f'{n.lineno}: {ast.unparse(n)}' for n in ast.walk(tree)
+           if isinstance(n, ast.Attribute) and n.attr.startswith('_')
+           and not n.attr.startswith('__') and rooted(n.value, aliases)]
+    assert not bad, bad

@@ -170,3 +170,46 @@ def test_device_buffer_flushes_dirty_chunks_in_place():
     t.write(np.array([5, 260]), np.full((2, 2), 7, dtype=np.int8))
     assert t.device_view() is v
     assert (v[[5, 260]] == 7).all() and (v[300:] == 0).all()
+
+
+# ------------------- the int8 row mask the kernels read -------------------
+
+def _flat_device_mask(mask, size, n_pad):
+    """FlatIndex._device_mask's body before padded_mask (PQScanIndex.search
+    built its mask inline with the same code)."""
+    m = np.zeros(n_pad, dtype=np.int8)
+    if mask is None:
+        m[:size] = 1
+    else:
+        m[:size] = np.asarray(mask[:size], dtype=np.int8)
+    return m
+
+
+def _mesh_padded_mask(mask, n_pad):
+    """parallel/mesh.py's _padded_mask before padded_mask."""
+    out = np.zeros(n_pad, dtype=np.int8)
+    out[: len(mask)] = np.asarray(mask).astype(np.int8)
+    return out
+
+
+_RNG = np.random.default_rng(7)
+PADDED_MASK_CASES = {
+    'none': (None, 5, 8),
+    'short': (np.array([1, 0, 1, 1, 0], bool), 5, 8),
+    'full': (_RNG.random(1024) < 0.5, 1024, 1024),
+    'padding': (np.ones(8, bool), 5, 8),
+    'list': ([True, False, True], 3, 16),
+}
+
+
+@pytest.mark.parametrize('case', PADDED_MASK_CASES)
+def test_padded_mask_equals_the_masks_it_replaced(case):
+    from annlite_torch.index.base import padded_mask
+
+    mask, size, n_pad = PADDED_MASK_CASES[case]
+    got = padded_mask(mask, size, n_pad)
+    assert got.dtype == np.int8 and got.shape == (n_pad,)
+    np.testing.assert_array_equal(got, _flat_device_mask(mask, size, n_pad))
+    if mask is not None and len(mask) == size:  # the mesh's callers pass len(mask)
+        np.testing.assert_array_equal(got, _mesh_padded_mask(mask, n_pad))
+        np.testing.assert_array_equal(padded_mask(mask, len(mask), n_pad), got)

@@ -154,3 +154,30 @@ def test_data_path_opens_in_the_other_package(tmp_path, data, kw, writer):
         else:
             np.testing.assert_array_equal(a, b)
     other.close()
+
+
+def test_sharded_graph_unfiltered_search_equal_jax(tmp_path):
+    """An unfiltered search of a sharded graph with nothing deleted answers
+    as the JAX facade does over the same snapshot.  The JAX container always
+    hands the index the alive bitmap, and a mask widens each shard's beam and
+    rerank to 4 * limit; at ef_search 16 over hard rows the narrower beam
+    would miss neighbours."""
+    rng = np.random.default_rng(0)
+    n = 4000
+    x = rng.integers(-8, 9, (n, D)).astype(np.float32)
+    q = x[:64] + rng.integers(-2, 3, (64, D)).astype(np.float32)
+    kw = dict(metric='euclidean', index_type='sharded_graph', max_degree=8,
+              ef_search=16, data_path=tmp_path / 'sg')
+    t = TAnnLite(D, device='cpu', **kw)
+    t.index([tdoc.Doc(id=f'd{i}', embedding=x[i]) for i in range(n)])
+    d_t, ids_t = t.search_numpy(q, limit=10)
+    d_all, rows_all = t._container.index.search(q, limit=10, mask=np.ones(n, bool))
+    assert ids_t == [[f'd{r}' for r in row] for row in rows_all]
+    t.dump()
+    t.close()
+    j = JAnnLite(D, **kw)
+    d_j, ids_j = j.search_numpy(q, limit=10)
+    assert ids_t == ids_j
+    for a, b in zip(d_t, d_j):
+        np.testing.assert_array_equal(a, b)
+    j.close()
