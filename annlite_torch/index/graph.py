@@ -20,8 +20,9 @@ walk scored ``limit`` passing rows.  The table, int8 and packed traversals
 apply it at selection (masked candidates leave the ``ef`` list, as the
 reference does for every traversal).  Below ``filter_fallback_selectivity``
 a masked exact scan replaces the traversal (the reference's brute-force
-fallback when candidates < limit).  Soft-deleted rows behave like filtered
-ones.
+fallback when candidates < limit; on the card `ops/masked_scan.py`'s
+kernel, which reads the passing rows only).  Soft-deleted rows behave like
+filtered ones.
 
 A device-built index that is synced and streams appends or updates patches
 its serving state (new codes only, fresh entry samples) instead of marking
@@ -43,6 +44,7 @@ from ..math import dot_f32, l2_normalize
 from ..ops import BIG
 from ..ops.beam import (beam_search_int8, beam_search_packed, beam_search_pq,
                         beam_search_vectors, pack_neighbors)
+from ..ops.masked_scan import _distances, masked_scan
 from ..ops.topk import topk
 from ..profile import count, span, upload, wait
 from .base import BaseIndex
@@ -562,15 +564,6 @@ def _quantize_rows_int8(v: torch.Tensor):
     return q8, sc, torch.sum(v * v, dim=1)
 
 
-def _distances(q: torch.Tensor, v: torch.Tensor, euclid: bool) -> torch.Tensor:
-    """``[Q, D] x [S, D] -> [Q, S]``: squared L2 through the product
-    identity, or ``1 - dot``; float32 products without TF32."""
-    dots = dot_f32(q, v)
-    if euclid:
-        return torch.sum(q * q, dim=1)[:, None] + torch.sum(v * v, dim=1)[None, :] - 2.0 * dots
-    return 1.0 - dots
-
-
 def _sample_entries(sample_vecs, sample_ids, q, euclid: bool, e: int):
     """Per-query beam seeds: the nearest ``e`` of the sampled nodes (ties to
     the lower sample, as ``lax.top_k``)."""
@@ -604,7 +597,6 @@ def _rerank(q, cand_ids, cand_d, vecs, euclid: bool, r: int, limit: int):
 
 
 def _masked_exact_scan(vecs, q, mask, euclid: bool, limit: int):
-    """Exact scan restricted to mask-passing rows (the filter fallback)."""
-    d = _distances(q, vecs[: mask.shape[0]].float(), euclid)
-    d, ids = topk(torch.where(mask[None, :], d, BIG), limit)
-    return d, ids.to(torch.int32)
+    """Exact scan restricted to mask-passing rows (the filter fallback): on
+    the card one ``masked_scan`` launch and its merge (`ops/masked_scan.py`)."""
+    return masked_scan(vecs, q, mask, euclid, limit)

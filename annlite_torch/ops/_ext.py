@@ -68,6 +68,10 @@ SIGNATURES = {
         'annlite_adc_i8_scores': [_P] * 7 + [_I] * 6 + [_P] * 2,
         'annlite_adc_i8_info': [_I] * 2 + [_P],
     },
+    'masked_scan': {
+        'annlite_masked_scan': [_P] * 9 + [_I] * 10 + [_P],
+        'annlite_masked_scan_info': [_I] * 3 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -94,8 +94,8 @@ line:
    the W-wide graph: recall@10 >= 0.95 with vector traversal, >= 0.90 with
    PQ64 table traversal (``beam_pq``) and rerank 100 (rerank
    0, int8 and packed traversal printed), 50% and 5% masks (the 5% one
-   equals the exact masked scan), soft deletes, ``device_searcher`` against
-   ``search``, latency of each traversal, the kernels one PQ search
+   the masked brute force's rows, rank by rank within float32 rounding),
+   soft deletes, ``device_searcher`` against ``search``, latency of each traversal, the kernels one PQ search
    launches, ``beam_pq`` on this graph against the eager loop and timed at
    Q = 64 and 1 (its bound from the rows the eager loop reads), a profile
    of the PQ searches at batch 64 and 1 (kernel launches, the device's idle
@@ -109,7 +109,13 @@ line:
    predicate at the filtered graph cell's shape (262,144 integer rows of 96
    dims, ef 50, k 10) at 30, 50 and 80% of rows passing, bit-equal to its
    plain twin and the eager loop, and timed beside the search without it
-   (line ``beam_vec_filtered``, :func:`beam_vec_filtered`);
+   (line ``beam_vec_filtered``, :func:`beam_vec_filtered`); then the masked
+   exact scan at that cell's shape (64 queries, k 10) at 5, 15 and 20% of
+   rows passing, both metrics: ``masked_scan`` and its merge, one launch
+   each a call, bit-equal to the plain twin (the product over every row and
+   a stable sort) on integer rows and within 2e-6 on unit rows, timed beside
+   the twin on the card and the bound (line ``masked_scan``,
+   :func:`masked_scan_phase`);
 12. ``facade_graph``: ``AnnLite(index_type='graph')`` over the first 20,000
    of phase 7's docs, without a codec and with ``n_subvectors=64,
    rerank=0`` (``beam_pq`` through the facade): self-hits, a filtered search,
@@ -308,6 +314,97 @@ def beam_vec_filtered(bm, GraphIndex, sample_entries, cuda_ms, drive, nq: int = 
     torch.cuda.empty_cache()
 
 
+def masked_scan_phase(msc, tracer, cuda_ms, drive, nq: int = 64):
+    """The graph filter's masked exact scan (``masked_scan`` and its merge)
+    at the shape of the benchmark's filtered graph cell: 262,144 rows of 96
+    dims, ``nq`` queries, k = 10, 5, 15 and 20% of rows passing, in the
+    squared-L2 and the inner-product branch (the cosine cell's).  On
+    clustered integer rows in 0..255 (every sum exact in float32 in any
+    order) the kernel is held bit-equal to its plain twin on the card (the
+    float32 product over every row and a stable sort); on unit rows (the
+    cell's) its distances within 2e-6 of the twin's, rank by rank, and its
+    rows' float64 distances within 2e-6 of the twin's rows'.  Each call
+    launches the scan and the merge once.  Both timed on the unit rows,
+    beside the bound from the passing rows' bytes and the float32 FMA rate.
+    Returns ``(ms, plain_ms)``, the bound and the largest distance gap of
+    the inner product at 20%, for the kernels' table."""
+    import numpy as np
+    import torch
+
+    dev = torch.device('cuda')
+    n, dim, k = 262_144, 96, 10
+    rng = np.random.default_rng(SEED + 24)
+    cent = rng.integers(0, 200, (1024, dim))
+    xi = np.clip(cent[rng.integers(0, 1024, n)] + rng.integers(-24, 25, (n, dim)),
+                 0, 255).astype(np.float32)
+    qi = np.clip(xi[rng.integers(0, n, nq)] + rng.integers(-6, 7, (nq, dim)),
+                 0, 255).astype(np.float32)
+    xu = rng.standard_normal((n, dim)).astype(np.float32)
+    xu /= np.linalg.norm(xu, axis=1, keepdims=True)
+    qu = xu[rng.integers(0, n, nq)] + 0.1 * rng.standard_normal((nq, dim)).astype(np.float32)
+    qu /= np.linalg.norm(qu, axis=1, keepdims=True)
+    data = {kind: (torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev))
+            for kind, (x, q) in (('integer', (xi, qi)), ('unit', (xu, qu)))}
+    sels = (0.05, 0.15, 0.2)
+    masks = {s: torch.from_numpy(rng.random(n) < s).to(dev) for s in sels}
+
+    def launches():
+        c = tracer.snapshot()['counters']
+        return c.get('launch.masked_scan', 0), c.get('launch.masked_scan_merge', 0)
+
+    def exact(x, q, ids, euclid):  # float64 distances of the returned rows
+        v, qd = x[ids.long()].double(), q.double()[:, None, :]
+        return ((qd - v) ** 2).sum(-1) if euclid else 1.0 - (qd * v).sum(-1)
+
+    checks, gap, ids_equal = [], {}, {}
+    for euclid in (True, False):
+        for s, m in masks.items():
+            for kind, (x, q) in data.items():
+                name = f'masked_scan {s:.0%} {"l2" if euclid else "ip"} {kind}'
+                before = launches()
+                (d, ids), _ = drive(name, ['masked_scan'],
+                                    lambda: msc.masked_scan(x, q, m, euclid, k))
+                got = tuple(a - b for a, b in zip(launches(), before))
+                if got != (1, 1):
+                    fail(f'{name}: {got} launches of the scan and the merge, not one each')
+                td, ti = msc._masked_scan_ref(x, q, m, euclid, k)
+                if not bool(m[ids.long()].all()):
+                    fail(f'{name}: a returned row lies outside the mask')
+                if kind == 'integer':
+                    if not (torch.equal(d, td) and torch.equal(ids, ti)):
+                        fail(f'{name}: ids or distances differ from the plain twin')
+                    checks.append(f'{name}: bit-equal to the plain twin')
+                    continue
+                g = (d - td).abs().max().item()
+                g_rows = (exact(x, q, ids, euclid) - exact(x, q, ti, euclid)).abs().max().item()
+                gap[name] = {'distances': g, 'rows_float64': g_rows}
+                ids_equal[name] = float((ids == ti).float().mean())
+                if g > 2e-6 or g_rows > 2e-6:
+                    fail(f'{name}: distances {g} or rows {g_rows} beyond 2e-6 of the twin')
+                checks.append(f'{name}: within 2e-6 of the plain twin, rank by rank')
+    x, q = data['unit']
+    ms, plain_ms, bound_ms = {}, {}, {}
+    for euclid in (True, False):
+        for s, m in masks.items():
+            key = f'{s:.0%} {"l2" if euclid else "ip"}'
+            ms[key] = cuda_ms(lambda: msc.masked_scan(x, q, m, euclid, k))
+            plain_ms[key] = cuda_ms(lambda: msc._masked_scan_ref(x, q, m, euclid, k), 5)
+            p = int(m.sum())
+            bound_ms[key] = bound(n + p * dim * 4 + nq * dim * 4 + nq * k * 8,
+                                  2.0 * nq * p * dim, FP32_OPS_PER_S)
+    emit({'phase': 'masked_scan', 'n': n, 'dim': dim, 'nq': nq, 'k': k,
+          'plan': msc.masked_scan_plan(n, nq, k)._asdict(), 'checks': checks,
+          'max_gap_unit_rows': gap, 'ids_equal_unit_rows': ids_equal,
+          'passing_rows': {f'{s:.0%}': int(m.sum()) for s, m in masks.items()},
+          'ms': ms, 'plain_ms': plain_ms,
+          'bound_ms': {key: b[0] for key, b in bound_ms.items()},
+          'bound_by': {key: b[1] for key, b in bound_ms.items()}, 'launches_per_search': 2})
+    top = '20% ip'
+    del data, masks
+    torch.cuda.empty_cache()
+    return (ms[top], plain_ms[top]), bound_ms[top], gap['masked_scan 20% ip unit']['distances']
+
+
 def main() -> int:
     if not (ROOT / 'annlite_torch' / 'csrc').is_dir():
         print('chip_smoke: run from a checkout of the repository '
@@ -340,13 +437,15 @@ def main() -> int:
     from annlite_torch.ops import fused_scan as fs
     from annlite_torch.ops import gather as ga
     from annlite_torch.ops import ivf as iv
+    from annlite_torch.ops import masked_scan as msc
     from annlite_torch.ops.scan import (quantize_rows_int4_device,
                                         quantize_rows_int8_device, scan_topk)
 
     # the port's kernels, each counted in the tracer's ``launch.<name>``
     kernels = ('block_top2', 'lane8_merge', 'block_top2_int4', 'block_top2_bf16',
                'gather_rerank', 'adc_scores', 'adc_block_top2', 'ivf_scores',
-               'ivf_block_top2', 'lut_pq_scores', 'adc_scores_i8', 'beam_pq', 'beam_vec')
+               'ivf_block_top2', 'lut_pq_scores', 'adc_scores_i8', 'beam_pq', 'beam_vec',
+               'masked_scan')
     main_launches = {k: 0 for k in kernels}
 
     def launch_counts():
@@ -1727,14 +1826,17 @@ def main() -> int:
     gxd = torch.from_numpy(gx).to(dev)
     gsq = torch.sum(gxd * gxd, dim=1)
 
-    def gbrute(qv, mask=None, k=10):
+    def gbrute(qv, mask=None, k=10, dists=False):
         """Exact float32 L2 top-k rows of the graph corpus (under a mask),
-        in the operations of the graph's exact-scan fallback."""
+        in the operations of the graph's exact-scan fallback; with
+        ``dists`` also their distances and the whole [Q, N] matrix."""
         qd = torch.from_numpy(qv).to(dev)
         dd = torch.sum(qd * qd, dim=1)[:, None] + gsq[None, :] - 2.0 * (qd @ gxd.T)
         if mask is not None:
             dd = torch.where(torch.from_numpy(mask).to(dev)[None, :], dd, 3.4e38)
-        return torch.sort(dd, dim=1, stable=True).indices[:, :k].cpu().numpy()
+        srt = torch.sort(dd, dim=1, stable=True)
+        ids = srt.indices[:, :k].cpu().numpy()
+        return (srt.values[:, :k].cpu().numpy(), ids, dd.cpu().numpy()) if dists else ids
 
     ggt = gbrute(gq)
     mrng = np.random.default_rng(SEED + 2)
@@ -1764,7 +1866,14 @@ def main() -> int:
         if not m[ii[dd < 1e37]].all():
             fail(f'graph mask {sel}: a returned row lies outside the mask')
     # below filter_fallback_selectivity the search is the exact masked scan
-    if not np.array_equal(gres[0.05][1], gbrute(gq, gmasks[0.05])):
+    # (csrc/masked_scan.cu): the brute force's rows at their distances, rank
+    # by rank, but for float32 rounding (K3's stated tolerance, 1e-5 of |q|^2
+    # + |x|^2): the kernel sums in another order than the product
+    bd, _, bmat = gbrute(gq, gmasks[0.05], dists=True)
+    fd, fi = gres[0.05]
+    ftol = 1e-5 * (np.sum(gq * gq, axis=1)[:, None] + gsq.cpu().numpy()[fi])
+    if not (np.abs(fd - bd) <= ftol).all() or not (
+            np.abs(np.take_along_axis(bmat, fi, axis=1) - bd) <= ftol).all():
         fail('graph mask 0.05: the exact-scan fallback differs from a masked brute force')
     # soft deletes: each query's own best row is deleted and never returned
     gdel = GraphIndex(d2, **gkw)
@@ -2029,6 +2138,8 @@ def main() -> int:
     del vidx, vs, vq_t, vent, vx, vd_k, vi_k, vits, counted
     torch.cuda.empty_cache()
     beam_vec_filtered(bm, GraphIndex, _sample_entries, cuda_ms, drive, nq)
+    times['masked_scan'], bounds['masked_scan'], err['masked_scan'] = masked_scan_phase(
+        msc, tracer, cuda_ms, drive, nq)
 
     # ---------------- 12. the facade with the graph index ----------------
     # the first 20,000 of phase 7's docs, without a codec and with PQ64 at
@@ -2889,7 +3000,8 @@ def main() -> int:
            'lut_pq_scores': 'annlite_torch/csrc/lut_pq.cu',
            'adc_scores_i8': 'annlite_torch/csrc/adc_i8.cu',
            'beam_pq': 'annlite_torch/csrc/beam_pq.cu',
-           'beam_vec': 'annlite_torch/csrc/beam_vec.cu'}
+           'beam_vec': 'annlite_torch/csrc/beam_vec.cu',
+           'masked_scan': 'annlite_torch/csrc/masked_scan.cu'}
     replaces = {'block_top2': 'annlite_tpu/ops/fused_scan.py:99',
                 'lane8_merge': 'annlite_tpu/ops/fused_scan.py:121',
                 # the int4 and bf16 branches of K1/K2's block scoring
@@ -2905,7 +3017,9 @@ def main() -> int:
                 # K8 with the loop around it (annlite_tpu/ops/beam.py:149)
                 'beam_pq': 'annlite_tpu/ops/adc.py:283',
                 # no Pallas kernel: the vector scorer's loop, an einsum under jit
-                'beam_vec': 'annlite_tpu/ops/beam.py:217'}
+                'beam_vec': 'annlite_tpu/ops/beam.py:217',
+                # no Pallas kernel: an XLA product and lax.top_k
+                'masked_scan': 'none: annlite_tpu/index/graph.py:803'}
     emit({'phase': 'bounds', 'bound_of': {k: bounds[k][2] for k in kernels}})
     emit({'kernels': [
         {'name': k, 'route': 'cuda',
