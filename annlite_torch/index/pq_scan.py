@@ -21,7 +21,7 @@ from ..math import l2_normalize
 from ..ops import BIG
 from ..ops.adc import adc_topk
 from ..ops.topk import topk
-from ..profile import upload
+from ..profile import span, upload, wait
 from .base import BaseIndex, padded_mask
 from .buffer import DeviceBuffer
 
@@ -139,23 +139,25 @@ class PQScanIndex(BaseIndex):
                                         'PQScanIndex(rerank=0)')
 
     def search(self, query: np.ndarray, limit: int = 10, mask: Optional[np.ndarray] = None):
-        query = self._prep(query)
-        dtable = self.pq_codec.dist_mat(query).to(self.device)
-        codes_t = self._codes_t.device_view()
-        n_pad = codes_t.shape[1]
-        k = min(limit, max(self.size, 1))
-        mt = upload(padded_mask(mask, self.size, n_pad), self.device)
-        if self.rerank > 0:
-            r = min(max(self.rerank, k), n_pad)
-            # adc_topk finishes the first-pass top-k with the deep select on
-            # the card: the [Q, N] score matrix is never written
-            adc_d, cand = adc_topk(dtable, codes_t, r, mt, exact=self.exact_topk)
-            q = torch.from_numpy(query).to(self.device)
-            d, idx = _rerank(q, cand, adc_d, self._vectors.device_view(), k,
-                             int(self.metric))
-        else:
-            d, idx = adc_topk(dtable, codes_t, k, mt, exact=self.exact_topk)
-        return d.cpu().numpy(), idx.cpu().numpy()
+        with span('annlite.index.prep'):
+            q = upload(self._prep(query), self.device)
+            dtable = self.pq_codec.dist_mat(q).to(self.device)
+            codes_t = self._codes_t.device_view()
+            n_pad = codes_t.shape[1]
+            k = min(limit, max(self.size, 1))
+            mt = upload(padded_mask(mask, self.size, n_pad), self.device)
+            vectors = self._vectors.device_view() if self.rerank > 0 else None
+        with span('annlite.index.dispatch'):
+            if self.rerank > 0:
+                r = min(max(self.rerank, k), n_pad)
+                # adc_topk finishes the first-pass top-k with the deep select
+                # on the card: the [Q, N] score matrix is never written
+                adc_d, cand = adc_topk(dtable, codes_t, r, mt, exact=self.exact_topk)
+                d, idx = _rerank(q, cand, adc_d, vectors, k, int(self.metric))
+            else:
+                d, idx = adc_topk(dtable, codes_t, k, mt, exact=self.exact_topk)
+        with wait():
+            return d.cpu().numpy(), idx.cpu().numpy()
 
     def reset(self):
         self._codes_t.reset()

@@ -273,20 +273,25 @@ class AnnLite:
                 'Please use `force_train=True` to retrain.'
             )
             return
-        if self._projector_codec:
-            self.logger.info(f'Training Projector codec with {x.shape[0]} vectors')
-            self._projector_codec.fit(x)
-        xp = self._projector_codec.encode(x) if self._projector_codec else x
-        if self._vq_codec:
-            self.logger.info(f'Training VQ codec (K={self.n_cells})')
-            self._vq_codec.fit(x)
-        if self._pq_codec:
-            self.logger.info(f'Training PQ codec (m={self.n_subvectors})')
-            self._pq_codec.fit(xp)
-        if auto_save:
-            self.dump_model()
-        if self._container is None:
-            self._build_container()
+        with span('annlite.train'):
+            if self._projector_codec:
+                self.logger.info(f'Training Projector codec with {x.shape[0]} vectors')
+                with span('annlite.train.projector'):
+                    self._projector_codec.fit(x)
+            xp = self._projector_codec.encode(x) if self._projector_codec else x
+            if self._vq_codec:
+                self.logger.info(f'Training VQ codec (K={self.n_cells})')
+                with span('annlite.train.vq'):
+                    self._vq_codec.fit(x)
+            if self._pq_codec:
+                self.logger.info(f'Training PQ codec (m={self.n_subvectors})')
+                with span('annlite.train.pq'):
+                    self._pq_codec.fit(xp)
+            if auto_save:
+                with span('annlite.train.save'):
+                    self.dump_model()
+            if self._container is None:
+                self._build_container()
 
     def partial_train(self, x: np.ndarray, auto_save: bool = True,
                       force_train: bool = False):

@@ -329,6 +329,18 @@ def _check(what, dtable, codes_t, mask):
     return q, m, k, codes_t.shape[1], _code_bytes(codes_t)
 
 
+def _count_launches(entry: str, tab: Optional[torch.Tensor], plan: AdcPlan, top2: bool):
+    """Count the kernels one call of ``entry`` launched: the table's
+    interleave (``launch.adc_interleave``) unless the core read the table in
+    place, the core (``launch.<entry>``), and the splits' merge of a top-2
+    entry (``launch.adc_merge``)."""
+    if tab is not None:
+        count('launch.adc_interleave')
+    count(f'launch.{entry}')
+    if top2 and plan.splits > 1:
+        count('launch.adc_merge')
+
+
 def adc_scores_kernel(dtable, codes_t, mask):
     """Launch ``adc_scores`` (K5) -> float32 ``[Q, N]``, BIG where ``mask``
     is 0.  Codes and mask of an N that is not a multiple of 4 are padded to
@@ -348,7 +360,7 @@ def adc_scores_kernel(dtable, codes_t, mask):
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), out.data_ptr(),
             tab_ptr, q, m, k, n, ld, cb, _plan_args(plan), _ext.stream_ptr(dtable)),
             'adc_scores')
-    count('launch.adc_scores')
+    _count_launches('adc_scores', tab, plan, False)
     return out
 
 
@@ -371,7 +383,7 @@ def adc_block_top2(dtable, codes_t, mask, block_n: int):
             dtable.data_ptr(), codes_t.data_ptr(), mask.data_ptr(), s.data_ptr(),
             r.data_ptr(), *parts, tab_ptr, q, m, k, n, n, block_n, cb,
             _plan_args(plan), _ext.stream_ptr(dtable)), 'adc_block_top2')
-    count('launch.adc_block_top2')
+    _count_launches('adc_block_top2', tab, plan, True)
     return s, r
 
 

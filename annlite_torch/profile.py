@@ -20,7 +20,9 @@ Names (``PERF.md`` §3): a search is the root ``annlite.search`` with
 where the host blocks on the card, and inside the dispatch ``.fallback``, a
 filtered graph search's masked exact scan) and ``annlite.storage.idmap`` /
 ``.docs``; an ingest the root ``annlite.ingest`` with ``annlite.ingest.store``
-and ``annlite.ingest.index`` (the device build's ``annlite.build.<stage>``).
+and ``annlite.ingest.index`` (the device build's ``annlite.build.<stage>``); a
+training the root ``annlite.train`` with ``annlite.train.<projector, vq, pq>``
+(each codec's fit) and ``annlite.train.save`` (the codec files' dump).
 Counters: ``host_syncs`` (one per wait span), ``h2d_bytes``, ``graph.iters``,
 ``graph.fallback_queries`` and ``graph.filtered_queries`` (queries of a
 filtered graph search answered by the exact scan, and traversed with the
