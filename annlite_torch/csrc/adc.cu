@@ -28,10 +28,10 @@
 // scores.
 //
 // What the design does about what held the first version back:
-//   1. A query tile per CTA.  A CTA holds QT queries (1 to 16, planned in
-//      Python, ops/adc.py adc_plan; 16 on the PQ path) and every code it
-//      loads serves all of them, so the codes cross L2 ceil(Q / QT) times
-//      instead of Q times.
+//   1. A query tile per CTA.  A CTA holds QT queries (1 to 32, planned in
+//      Python, ops/adc.py adc_plan; 32 on the PQ path at batch 64) and every
+//      code it loads serves all of them, so the codes cross L2 ceil(Q / QT)
+//      times instead of Q times.
 //   2. A table layout that serves several queries per shared-memory read.
 //      A small kernel first interleaves the tile's tables in global memory as
 //      [tile][m][kp][QT] floats (kp = K rounded up to 4), so one code's
@@ -41,8 +41,10 @@
 //      Bank conflicts then arise only between the rows of one phase: at
 //      QT = 16 a half-warp reads two random 64-byte entries (1.5 passes on
 //      average), where the first version's warp read 32 random words (about
-//      3.5 passes).  At QT = 1 the layout is the table's own [Q][m][K]
-//      (K % 4 == 0): the core reads it in place and nothing is interleaved.
+//      3.5 passes); at QT = 32 a half-warp reads one row's whole 128-byte
+//      entry, all 32 banks once.  At QT = 1 the layout is the table's own
+//      [Q][m][K] (K % 4 == 0): the core reads it in place and nothing is
+//      interleaved.
 //   3. Wide code loads.  A thread owns 4 neighbouring lanes (rows) and reads
 //      their codes for one subspace as one 32-bit (u8) or 64-bit (u16) load;
 //      no 1-byte load per (row, subspace) remains.  A lookup's shared
@@ -55,10 +57,27 @@
 //      for the next kG groups, so staging costs K / (rows in flight) of the
 //      lookups: 25% at QT = 16, kG = 4 and 512 threads.  No barrier of the
 //      CTA stops the stream: the last warp done with a buffer refills it,
-//      and a warp waits only for a chunk that has not arrived.  kG = 4 is
-//      the most that fits 128 registers (ptxas fails on kG = 8; kG = 6, or
-//      256 threads with kG = 8 to 16, ran slower: the loop needs its 16
-//      warps per SM to hide the lookups' latency).
+//      and a warp waits only for a chunk that has not arrived.  Below
+//      QT = 16, kG = 4 is the most that fits 128 registers beside the
+//      prefetched codes (ptxas fails on kG = 8; kG = 6, or 256 threads with
+//      kG = 8 to 16, ran slower: the loop needs its 16 warps per SM to hide
+//      the lookups' latency).
+//   5. The staged tiles (QT = 16 and the wide tile, 32) bring their codes
+//      through the ring too.  Each use of a slot holds, beside the table
+//      chunk, the codes of the CTA's rows in flight for the chunk's
+//      subspaces (one bulk copy per subspace and row block), and the lookup
+//      loop reads them from shared memory: no global load, and no latency of
+//      one, is left in the loop.  Loading the codes from global memory cost
+//      the QT = 16 core 0.34 of its 1.36 ms at Q 64, N 2^20, M 64 (a copy
+//      that made its codes up in registers ran 1.02 ms); bank conflicts
+//      0.12 ms (codes that put a half-warp's two rows in opposite bank
+//      halves), the table's restaging 0.06 ms (a copy that never refilled).
+//      With no codes prefetched into registers, a pass holds kG = 8 groups
+//      (1,024 rows in flight at QT = 32, 2,048 at QT = 16: the table's bytes
+//      restaged are 25% and 12.5% of the lookups'), and the lookups of two
+//      groups are issued before their additions.  Smaller tiles keep their
+//      codes in global memory and their table resident where it fits (one
+//      or two queries; K7 and K6 on the core below 16 queries).
 // Filling the card: a CTA holds nbc row blocks; while the grid stays within
 // one wave, the host splits each block's groups over more CTAs, and
 // adc_merge inserts the splits' partial top-2s in ascending order with
@@ -82,7 +101,6 @@
 namespace {
 
 constexpr int kLpt = 4;              // lanes per thread: one wide code load
-constexpr int kG = 4;                // groups per pass: kG * 4 * 2 accumulators
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSmem = 232448;     // 227 KB: a block's shared memory limit
 constexpr int kMaxBuf = 4;           // ring buffers
@@ -108,18 +126,31 @@ struct Args {
   // the launch plan (ops/adc.py adc_plan)
   int qt, tiles, nbc, splits, gps, mc, nbuf, nchunks;
   int nrbg;                // CTAs per (tile, split): row-block groups
+  uint32_t tab_bytes;      // a ring slot's table chunk: mc * kp * qt floats
+  uint32_t slot_bytes;     // a slot: the table chunk, then (staged tiles) its codes
 };
 
-// Queries per thread (one 4- or 8-byte LDS) and threads per lane quad.
+// Queries per thread (one 4- or 8-byte LDS), threads per lane quad, and the
+// groups of a pass; tiles from 16 queries stage their codes in the ring
+// (point 5).
 template <int QT>
 struct Tile {
   static constexpr int kQpt = QT == 1 ? 1 : 2;
   static constexpr int kTq = QT / kQpt;
   // log2 of a table entry's bytes (QT floats)
-  static constexpr int kShift = QT == 1 ? 2 : QT == 2 ? 3 : QT == 4 ? 4 : QT == 8 ? 5 : 6;
+  static constexpr int kShift =
+      QT == 1 ? 2 : QT == 2 ? 3 : QT == 4 ? 4 : QT == 8 ? 5 : QT == 16 ? 6 : 7;
+  static constexpr bool kStaged = QT >= 16;
+  // groups per pass: kG * 4 * QPT accumulators
+  static constexpr int kG = kStaged ? 8 : 4;
 };
 
+bool valid_tile(int qt) {
+  return qt == 1 || qt == 2 || qt == 4 || qt == 8 || qt == 16 || qt == 32;
+}
 int threads_per_block(int qt) { return 32 * (qt == 1 ? 1 : qt / 2); }
+bool staged(int qt) { return qt >= 16; }
+int groups_per_pass(int qt) { return staged(qt) ? 8 : 4; }
 
 // acc[p] += the QPT floats at shared address `addr`, in order.  Volatile: the
 // reads stay after the mbarrier wait that makes the chunk visible.
@@ -137,20 +168,89 @@ __device__ __forceinline__ void lookup_add(uint32_t addr, float (&acc)[QPT]) {
   }
 }
 
-// Chunk s of the stream (chunk s % nchunks of the tile's table) into ring
-// buffer s % nbuf, completing on that buffer's barrier.
-__device__ __forceinline__ void load_chunk(const Args& a, float* ring, uint64_t* full, int tile,
-                                            int s) {
+// The QPT floats at shared address `addr`, without adding them.
+template <int QPT>
+__device__ __forceinline__ void lookup(uint32_t addr, float (&x)[QPT]) {
+  if constexpr (QPT == 2) {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x[0]), "=f"(x[1]) : "r"(addr));
+  } else {
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x[0]) : "r"(addr));
+  }
+}
+
+// Four codes of one subspace staged in shared memory (staged tiles).
+__device__ __forceinline__ uint32_t code_word(uint32_t addr, uint8_t) {
+  uint32_t w;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(w) : "r"(addr));
+  return w;
+}
+__device__ __forceinline__ uint2 code_word(uint32_t addr, uint16_t) {
+  uint2 w;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(w.x), "=r"(w.y) : "r"(addr));
+  return w;
+}
+
+// The codes a staged tile brings for row block rbi of CTA group rbg in the pass
+// of groups [gp, gp + kG): their first code within a subspace (`first`; add
+// the subspace's offset) and their count, 0 where the block is inactive.
+template <bool kIvf>
+__device__ __forceinline__ int pass_codes(const Args& a, int rbg, int rbi, int gp, int g_hi,
+                                          int kG, size_t* first) {
+  const int rb = rbg * a.nbc + rbi;
+  if (rb >= a.n_rb) return 0;
+  const int ng = min(kG, g_hi - gp);
+  if (kIvf) {
+    const int blk = max(a.block_ids[rb], 0);  // a pad selection scores block 0
+    *first = (size_t)blk * a.m * a.bn + (size_t)gp * kLanes;
+    return ng * kLanes;
+  }
+  const size_t start = (size_t)rb * a.bn + (size_t)gp * kLanes;
+  if (start >= (size_t)a.ld) return 0;
+  *first = start;
+  return (int)min((size_t)ng * kLanes, (size_t)a.ld - start);  // dense codes end at ld
+}
+
+// Use s of the stream into ring slot s % nbuf, completing on that slot's
+// barrier: chunk s % nchunks of the tile's table and, for a staged tile, the
+// codes of pass s / nchunks for the chunk's subspaces, [subspace][row block]
+// [group][lane] (kG * 128 codes a row block).  Issued by one thread.
+template <typename CodeT, bool kIvf, int QT>
+__device__ void fill(const Args& a, unsigned char* ring, uint64_t* full, int tile, int rbg,
+                     int g_lo, int g_hi, int s) {
+  constexpr int kG = Tile<QT>::kG;
   const int c = s % a.nchunks;
   const int b = s % a.nbuf;
   const int m0 = c * a.mc;
   const int mcur = min(a.mc, a.m - m0);
-  const size_t per_m = (size_t)a.kp * a.qt;
-  const uint32_t bytes = (uint32_t)(mcur * per_m * sizeof(float));
-  float* dst = ring + (size_t)b * a.mc * per_m;
+  const size_t per_m = (size_t)a.kp * QT;
+  const uint32_t tbytes = (uint32_t)(mcur * per_m * sizeof(float));
+  unsigned char* slot = ring + (size_t)b * a.slot_bytes;
   const float* src = a.tab + ((size_t)tile * a.m + m0) * per_m;
-  wg::mbar_expect_tx(&full[b], bytes);
-  wg::bulk_load(dst, src, bytes, &full[b]);
+  if constexpr (!Tile<QT>::kStaged) {
+    wg::mbar_expect_tx(&full[b], tbytes);
+    wg::bulk_load(slot, src, tbytes, &full[b]);
+  } else {
+    const int gp = g_lo + (s / a.nchunks) * kG;
+    uint32_t cbytes = 0;
+    for (int r = 0; r < a.nbc; ++r) {
+      size_t first;
+      cbytes += (uint32_t)(pass_codes<kIvf>(a, rbg, r, gp, g_hi, kG, &first) * sizeof(CodeT));
+    }
+    wg::mbar_expect_tx(&full[b], tbytes + cbytes * mcur);
+    wg::bulk_load(slot, src, tbytes, &full[b]);
+    const CodeT* codes = static_cast<const CodeT*>(a.codes);
+    CodeT* dst = reinterpret_cast<CodeT*>(slot + a.tab_bytes);
+    for (int r = 0; r < a.nbc; ++r) {
+      size_t first;
+      const int cnt = pass_codes<kIvf>(a, rbg, r, gp, g_hi, kG, &first);
+      if (cnt == 0) continue;
+      for (int mm = 0; mm < mcur; ++mm) {
+        wg::bulk_load(dst + ((size_t)mm * a.nbc + r) * kG * kLanes,
+                      codes + first + (size_t)(m0 + mm) * (kIvf ? a.bn : a.ld),
+                      (uint32_t)(cnt * sizeof(CodeT)), &full[b]);
+      }
+    }
+  }
 }
 
 // blockIdx.x = (tile * splits + split) * nrbg + row-block group.  Thread t
@@ -161,11 +261,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
   using C4 = Codes4<CodeT>;
   constexpr int QPT = Tile<QT>::kQpt;
   constexpr int TQ = Tile<QT>::kTq;
+  constexpr int kG = Tile<QT>::kG;
+  constexpr bool kStaged = Tile<QT>::kStaged;
   constexpr bool kIvf = EPI == kIvfScores || EPI == kIvfTop2;
   constexpr bool kTop2 = EPI == kBlockTop2 || EPI == kIvfTop2;
-  extern __shared__ __align__(16) float ring[];
-  const size_t per_m = (size_t)a.kp * QT;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)a.nbuf * a.mc * per_m);
+  extern __shared__ __align__(16) unsigned char ring[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + (size_t)a.nbuf * a.slot_bytes);
   uint32_t* done = reinterpret_cast<uint32_t*>(full + kMaxBuf);  // warps past each buffer
   const uint32_t nwarps = blockDim.x / 32;
 
@@ -174,7 +275,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
   const int split = ts % a.splits;
   const int tile = ts / a.splits;
   const int lq = threadIdx.x / TQ;
-  const int rb = rbg * a.nbc + lq / 32;
+  const int rbi = lq / 32;  // row block within the CTA
+  const int rb = rbg * a.nbc + rbi;
   const int lane0 = (lq % 32) * kLpt;
   const int q0 = tile * QT + (threadIdx.x % TQ) * QPT;
   const bool active = rb < a.n_rb;
@@ -199,7 +301,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
   }
   cbase += lane0;
 
-  const bool resident = a.nchunks <= a.nbuf;
+  // a staged tile's slots change codes every pass: it never keeps its table
+  const bool resident = !kStaged && a.nchunks <= a.nbuf;
   const int passes = (a.gps + kG - 1) / kG;
   const int total = resident ? a.nchunks : passes * a.nchunks;
   if (threadIdx.x == 0) {
@@ -211,7 +314,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
   }
   __syncthreads();  // the barriers are initialised before any copy
   if (threadIdx.x == 0) {
-    for (int s = 0; s < min(a.nbuf, total); ++s) load_chunk(a, ring, full, tile, s);
+    for (int s = 0; s < min(a.nbuf, total); ++s) {
+      fill<CodeT, kIvf, QT>(a, ring, full, tile, rbg, g_lo, g_hi, s);
+    }
   }
 
   float mn1[kLpt][QPT], mn2[kLpt][QPT];
@@ -226,6 +331,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
     }
   }
 
+  const uint32_t m_bytes = (uint32_t)((size_t)a.kp * QT * sizeof(float));
+  const uint32_t ring0 = wg::smem_u32(ring);
   int s = 0;
   for (int gp = g_lo; gp < g_hi; gp += kG) {
     bool ok[kG];
@@ -251,36 +358,75 @@ __global__ void __launch_bounds__(kMaxThreads, 1) adc_kernel(const Args a) {
       wg::mbar_wait(&full[b], resident ? 0u : (uint32_t)((s / a.nbuf) & 1));
       const int m0 = c * a.mc;
       const int mcur = min(a.mc, a.m - m0);
-      // this thread's queries in buffer b; entry c of subspace mm at
+      // this thread's queries in slot b; entry c of subspace mm at
       // + (mm * kp + c) * QT floats
-      const uint32_t tb =
-          wg::smem_u32(ring + (size_t)b * a.mc * per_m + (threadIdx.x % TQ) * QPT);
-      const uint32_t m_bytes = (uint32_t)(per_m * sizeof(float));
-      const CodeT* cp = codes + cbase + (size_t)m0 * ld + (size_t)gp * kLanes;
-#pragma unroll 2
-      for (int mm = 0; mm < mcur; ++mm) {
-        typename C4::Word w[kG];
+      const uint32_t tb = ring0 + b * a.slot_bytes + (threadIdx.x % TQ) * QPT * sizeof(float);
+      if constexpr (kStaged) {
+        // the codes of lane0 in slot b: + ((mm * nbc + rbi) * kG + g) * 128 codes
+        const uint32_t cw = ring0 + b * a.slot_bytes + a.tab_bytes +
+                            (uint32_t)((rbi * kG * kLanes + lane0) * sizeof(CodeT));
+        const uint32_t cm_bytes = (uint32_t)(a.nbc * kG * kLanes * sizeof(CodeT));
+        // not unrolled: unrolled by 3, nvcc 12.8 ran a short last chunk for
+        // 3 subspaces (wrong scores where m % 3 != 0); by 2 it ran slower
+#pragma unroll 1
+        for (int mm = 0; mm < mcur; ++mm) {
+          typename C4::Word w[kG];
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          w[g] = ok[g] ? C4::load(cp + (size_t)mm * ld + g * kLanes) : C4::zero();
+          for (int g = 0; g < kG; ++g) {
+            w[g] = ok[g] ? code_word(cw + mm * cm_bytes + g * kLanes * sizeof(CodeT), CodeT{})
+                         : C4::zero();
+          }
+          const uint32_t t = tb + mm * m_bytes;
+          // the lookups of two groups in flight before their additions
+#pragma unroll
+          for (int h = 0; h < kG; h += 2) {
+            float x[2][kLpt][QPT];
+#pragma unroll
+            for (int gi = 0; gi < 2; ++gi) {
+#pragma unroll
+              for (int j = 0; j < kLpt; ++j) {
+                lookup<QPT>(t + (C4::at(w[h + gi], j) << Tile<QT>::kShift), x[gi][j]);
+              }
+            }
+#pragma unroll
+            for (int gi = 0; gi < 2; ++gi) {
+#pragma unroll
+              for (int j = 0; j < kLpt; ++j) {
+#pragma unroll
+                for (int p = 0; p < QPT; ++p) {
+                  acc[h + gi][j][p] = __fadd_rn(acc[h + gi][j][p], x[gi][j][p]);
+                }
+              }
+            }
+          }
         }
-        const uint32_t t = tb + mm * m_bytes;
+      } else {
+        const CodeT* cp = codes + cbase + (size_t)m0 * ld + (size_t)gp * kLanes;
+#pragma unroll 2
+        for (int mm = 0; mm < mcur; ++mm) {
+          typename C4::Word w[kG];
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
+          for (int g = 0; g < kG; ++g) {
+            w[g] = ok[g] ? C4::load(cp + (size_t)mm * ld + g * kLanes) : C4::zero();
+          }
+          const uint32_t t = tb + mm * m_bytes;
 #pragma unroll
-          for (int j = 0; j < kLpt; ++j) {
-            lookup_add<QPT>(t + (C4::at(w[g], j) << Tile<QT>::kShift), acc[g][j]);
+          for (int g = 0; g < kG; ++g) {
+#pragma unroll
+            for (int j = 0; j < kLpt; ++j) {
+              lookup_add<QPT>(t + (C4::at(w[g], j) << Tile<QT>::kShift), acc[g][j]);
+            }
           }
         }
       }
       if (!resident) {
-        // the last warp done with buffer b refills it; no warp waits for the
+        // the last warp done with slot b refills it; no warp waits for the
         // others except on a chunk that has not arrived
         __syncwarp();
         if (threadIdx.x % 32 == 0) {
           __threadfence_block();
           if ((atomicAdd(&done[b], 1u) + 1) % nwarps == 0 && s + a.nbuf < total) {
-            load_chunk(a, ring, full, tile, s + a.nbuf);
+            fill<CodeT, kIvf, QT>(a, ring, full, tile, rbg, g_lo, g_hi, s + a.nbuf);
           }
         }
       }
@@ -425,7 +571,7 @@ __global__ void interleave_kernel(const float* __restrict__ dt, float* __restric
 
 // plan = {qt, tiles, nbc, splits, mc, nbuf} from ops/adc.py adc_plan;
 // false for a plan the kernel cannot run.
-bool set_plan(Args& a, const int* plan, int* threads, size_t* smem, int* grid) {
+bool set_plan(Args& a, const int* plan, int code_bytes, int* threads, size_t* smem, int* grid) {
   a.qt = plan[0];
   a.tiles = plan[1];
   a.nbc = plan[2];
@@ -433,7 +579,7 @@ bool set_plan(Args& a, const int* plan, int* threads, size_t* smem, int* grid) {
   a.mc = plan[4];
   a.nbuf = plan[5];
   const int qt = a.qt;
-  if (qt != 1 && qt != 2 && qt != 4 && qt != 8 && qt != 16) return false;
+  if (!valid_tile(qt)) return false;
   if (a.tiles < 1 || (long long)a.tiles * qt < a.nq || (long long)(a.tiles - 1) * qt >= a.nq) {
     return false;
   }
@@ -441,9 +587,14 @@ bool set_plan(Args& a, const int* plan, int* threads, size_t* smem, int* grid) {
   if (a.mc < 1 || a.mc > a.m || a.nbuf < 1 || a.nbuf > kMaxBuf) return false;
   a.gps = a.groups / a.splits;
   a.nchunks = (a.m + a.mc - 1) / a.mc;
-  if (a.nbuf > a.nchunks) return false;
+  if (!staged(qt) && a.nbuf > a.nchunks) return false;
   *threads = threads_per_block(qt) * a.nbc;
-  *smem = (size_t)a.nbuf * a.mc * a.kp * qt * sizeof(float) + kBarBytes;
+  const size_t tab = (size_t)a.mc * a.kp * qt * sizeof(float);
+  const size_t codes =
+      staged(qt) ? (size_t)a.mc * a.nbc * groups_per_pass(qt) * kLanes * code_bytes : 0;
+  *smem = (size_t)a.nbuf * (tab + codes) + kBarBytes;
+  a.tab_bytes = (uint32_t)tab;
+  a.slot_bytes = (uint32_t)(tab + codes);
   a.nrbg = (a.n_rb + a.nbc - 1) / a.nbc;
   const long long g = (long long)a.tiles * a.splits * a.nrbg;
   if (*threads > kMaxThreads || *smem > (size_t)kMaxSmem || g >= (1ll << 31)) return false;
@@ -471,7 +622,8 @@ int launch_qt(const Args& a, int threads, size_t smem, int grid, cudaStream_t st
     case 2: return launch_one<CodeT, EPI, 2>(a, threads, smem, grid, st);
     case 4: return launch_one<CodeT, EPI, 4>(a, threads, smem, grid, st);
     case 8: return launch_one<CodeT, EPI, 8>(a, threads, smem, grid, st);
-    default: return launch_one<CodeT, EPI, 16>(a, threads, smem, grid, st);
+    case 16: return launch_one<CodeT, EPI, 16>(a, threads, smem, grid, st);
+    default: return launch_one<CodeT, EPI, 32>(a, threads, smem, grid, st);
   }
 }
 
@@ -482,7 +634,8 @@ cudaError_t attributes_qt(int qt, cudaFuncAttributes* fa) {
     case 2: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 2>);
     case 4: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 4>);
     case 8: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 8>);
-    default: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 16>);
+    case 16: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 16>);
+    default: return cudaFuncGetAttributes(fa, adc_kernel<CodeT, EPI, 32>);
   }
 }
 
@@ -503,7 +656,11 @@ template <int EPI>
 int launch(Args a, const float* dtable, int k, float* tab, const int* plan, int code_bytes,
            void* stream) {
   constexpr bool kTop2 = EPI == kBlockTop2 || EPI == kIvfTop2;
-  const bool codes_aligned = (uintptr_t)a.codes % (4 * (uintptr_t)code_bytes) == 0;
+  // four codes a load; a staged tile's bulk copies of codes take 16-byte
+  // aligned codes and row strides
+  const bool codes_aligned =
+      (uintptr_t)a.codes % (4 * (uintptr_t)code_bytes) == 0 &&
+      (!staged(plan[0]) || ((uintptr_t)a.codes % 16 == 0 && ((size_t)a.ld * code_bytes) % 16 == 0));
   if (a.nq < 1 || a.m < 1 || k < 1 || a.bn < kLanes || a.bn % kLanes != 0 || a.n_rb < 1 ||
       a.bn / kLanes > 0xFFFF || a.ld % 4 != 0 || !codes_aligned ||
       (a.mask != nullptr && (uintptr_t)a.mask % 4 != 0) || (code_bytes != 1 && code_bytes != 2)) {
@@ -513,7 +670,7 @@ int launch(Args a, const float* dtable, int k, float* tab, const int* plan, int 
   a.kp = (k + 3) / 4 * 4;
   int threads, grid;
   size_t smem;
-  if (!set_plan(a, plan, &threads, &smem, &grid)) return (int)cudaErrorInvalidValue;
+  if (!set_plan(a, plan, code_bytes, &threads, &smem, &grid)) return (int)cudaErrorInvalidValue;
   if (kTop2 && a.splits > 1 && (a.part_s == nullptr || a.part_g == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -589,7 +746,8 @@ extern "C" {
 // place (QT = 1, K % 4 == 0); plan = {qt, tiles, nbc, splits, mc, nbuf}
 // (ops/adc.py adc_plan).
 
-// K5: out[q, n] (ld = row stride of codes_t [m, ld], n <= ld, ld % 4 == 0).
+// K5: out[q, n] (ld = row stride of codes_t [m, ld], n <= ld, ld % 4 == 0;
+// a staged tile takes ld * code_bytes % 16 == 0).
 int annlite_adc_scores(const void* dtable, const void* codes_t, const void* mask, void* out,
                        void* tab, int nq, int m, int k, int n, int ld, int code_bytes,
                        const int* plan, void* stream) {
@@ -640,7 +798,7 @@ int annlite_adc_info(int code_bytes, int epi, int qt, int* out) {
   if ((code_bytes != 1 && code_bytes != 2) || epi < 0 || epi > 3) {
     return (int)cudaErrorInvalidValue;
   }
-  if (qt != 1 && qt != 2 && qt != 4 && qt != 8 && qt != 16) return (int)cudaErrorInvalidValue;
+  if (!valid_tile(qt)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
   const cudaError_t e = code_bytes == 1 ? attributes<uint8_t>(epi, qt, &fa)
                                         : attributes<uint16_t>(epi, qt, &fa);

@@ -49,8 +49,14 @@ RING_BYTES = MAX_SMEM - 64
 MAX_ADC_CLUSTERS = RING_BYTES // 4
 # query tiles of the lookup core (csrc/adc.cu instantiates these); a thread
 # holds two queries of a tile (one of QT = 1)
-QUERY_TILES = (1, 2, 4, 8, 16)
+QUERY_TILES = (1, 2, 4, 8, 16, 32)
 MAX_QUERY_TILE = QUERY_TILES[-1]
+# the wide tile: a half-warp reads one row's whole 128-byte table entry
+WIDE_TILE = 32
+# tiles from this one stage their codes through the table ring, with groups
+# of GROUPS_STAGED rows a pass (GROUPS_DIRECT for smaller tiles)
+STAGED_TILE = 16
+GROUPS_STAGED, GROUPS_DIRECT = 8, 4
 LANES_PER_THREAD = 4            # one 32-bit (u8) or 64-bit (u16) code load
 MAX_THREADS = 512
 # one CTA on each of an H100's 132 SMs: the plan splits each block's groups
@@ -166,7 +172,8 @@ class AdcPlan(NamedTuple):
     queries (the last may hold fewer); CTAs of ``threads`` threads that hold
     ``nbc`` row blocks; ``splits`` CTAs share the groups of one row block; the
     tile's interleaved table streams through ``nbuf`` shared-memory buffers of
-    ``mc`` subspaces (resident when ``nchunks <= nbuf``)."""
+    ``mc`` subspaces (resident when ``nchunks <= nbuf`` below
+    :data:`STAGED_TILE`; from it each buffer also holds its rows' codes)."""
     qt: int
     tiles: int
     nbc: int
@@ -186,37 +193,61 @@ def _threads_per_block(qt: int) -> int:
     return 32 * max(1, qt // 2)
 
 
-@functools.lru_cache(maxsize=1024)
-def adc_plan(nq: int, n_rb: int, bn: int, m: int, k: int) -> AdcPlan:
-    """The lookup core's launch for ``nq`` queries over ``n_rb`` row blocks of
-    ``bn`` rows, ``m`` subspaces of ``k`` codewords.
+def _groups_per_pass(qt: int) -> int:
+    """Groups of 128 rows a thread's accumulators hold through one pass."""
+    return GROUPS_STAGED if qt >= STAGED_TILE else GROUPS_DIRECT
 
-    Query tiles of at most :data:`MAX_QUERY_TILE` queries, balanced (17
-    queries take two tiles of 16, the sizes being :data:`QUERY_TILES`), as
-    wide as the
-    table allows: two buffers of one subspace each must fit the ring (QT = 1
-    needs one).  A CTA holds as many row blocks as 512 threads allow; while
-    the grid stays within one wave of :data:`TARGET_CTAS`, each block's
-    groups are split over twice as many CTAs (a power of two that divides the
-    groups), and the kernel's merge inserts the splits' partial top-2s in
-    order.  The table stays resident where the tile's whole table fits the
-    ring, else it streams through :data:`NBUF` buffers of ``mc`` subspaces
-    (fewer where a subspace fills the ring)."""
+
+def _slot_bytes_per_m(qt: int, nbc: int, kp: int, code_bytes: int) -> int:
+    """A ring slot's bytes per subspace: the tile's float32 table entries
+    and, for a tile that stages them, its rows' codes for one pass."""
+    codes = nbc * _groups_per_pass(qt) * 128 * code_bytes if qt >= STAGED_TILE else 0
+    return kp * qt * 4 + codes
+
+
+@functools.lru_cache(maxsize=1024)
+def adc_plan(nq: int, n_rb: int, bn: int, m: int, k: int,
+             code_bytes: Optional[int] = None) -> AdcPlan:
+    """The lookup core's launch for ``nq`` queries over ``n_rb`` row blocks of
+    ``bn`` rows, ``m`` subspaces of ``k`` codewords, codes of ``code_bytes``
+    (by default 1 up to 256 codewords, else 2).
+
+    Query tiles of at most 16 queries, balanced (17 queries take two tiles of
+    16, the sizes being :data:`QUERY_TILES`), as wide as the table allows:
+    two buffers of one subspace each must fit the ring (QT = 1 needs one).
+    The :data:`WIDE_TILE` takes their place where it pads the batch to no
+    more query slots (17 to 32 queries, 64, not 33 or 100).  A CTA holds as
+    many row blocks as 512 threads allow; while the grid stays within one
+    wave of :data:`TARGET_CTAS`, each block's groups are split over twice as
+    many CTAs (a power of two that divides the groups), and the kernel's
+    merge inserts the splits' partial top-2s in order.  A tile below
+    :data:`STAGED_TILE` keeps its table resident where it fits the ring,
+    else streams it through :data:`NBUF` buffers of ``mc`` subspaces (fewer
+    where a subspace fills the ring); the tiles from :data:`STAGED_TILE`
+    stream their table and their rows' codes through :data:`NBUF` slots."""
+    cb = code_bytes or (1 if k <= 256 else 2)
     groups = bn // 128
     kp = _round_up(k, 4)
-    fit = [t for t in QUERY_TILES if t == 1 or 2 * kp * t * 4 <= RING_BYTES]
+    fit = [t for t in QUERY_TILES
+           if (1 if t == 1 else 2) * _slot_bytes_per_m(t, 1, kp, cb) <= RING_BYTES]
     if not fit or kp * 4 > RING_BYTES:
         raise ValueError(f'K = {k} codewords exceed the kernel limit K <= {MAX_ADC_CLUSTERS}')
-    tiles = -(-nq // fit[-1])
-    qt = next(t for t in fit if t * tiles >= nq)
+    narrow = [t for t in fit if t < WIDE_TILE]
+    tiles = -(-nq // narrow[-1])
+    qt = next(t for t in narrow if t * tiles >= nq)
+    if WIDE_TILE in fit and -(-nq // WIDE_TILE) * WIDE_TILE <= tiles * qt:
+        qt, tiles = WIDE_TILE, -(-nq // WIDE_TILE)
+    staged = qt >= STAGED_TILE
     per_block = _threads_per_block(qt)
     nbc = max(1, min(MAX_THREADS // per_block, n_rb))
+    while staged and nbc > 1 and 2 * _slot_bytes_per_m(qt, nbc, kp, cb) > RING_BYTES:
+        nbc -= 1
     nrbg = -(-n_rb // nbc)
     splits = 1
     while (tiles * nrbg * splits * 2 <= TARGET_CTAS and groups % (2 * splits) == 0):
         splits *= 2
-    per_m = kp * qt * 4
-    if m * per_m <= RING_BYTES:
+    per_m = _slot_bytes_per_m(qt, nbc, kp, cb)
+    if not staged and m * per_m <= RING_BYTES:
         mc, nbuf = m, 1
     else:
         nbuf = NBUF
@@ -225,7 +256,8 @@ def adc_plan(nq: int, n_rb: int, bn: int, m: int, k: int) -> AdcPlan:
         nchunks = -(-m // (RING_BYTES // (nbuf * per_m)))
         mc = -(-m // nchunks)
     nchunks = -(-m // mc)
-    nbuf = min(nbuf, nchunks)
+    if not staged:
+        nbuf = min(nbuf, nchunks)
     return AdcPlan(qt, tiles, nbc, splits, mc, nbuf, nchunks, per_block * nbc,
                    tiles * splits * nrbg, nbuf * mc * per_m + 64)
 
@@ -269,7 +301,7 @@ def adc_info(entry: str, nq: int, n_rb: int, bn: int, m: int, k: int,
     the table in place, the core, and the splits' merge of a top-2 entry),
     and the registers and spilled bytes per thread of its instantiation.
     Builds the kernels; needs a card."""
-    plan = adc_plan(nq, n_rb, bn, m, k)
+    plan = adc_plan(nq, n_rb, bn, m, k, code_bytes)
     out = (ctypes.c_int * 2)()
     _ext.check(_ext.library('adc').annlite_adc_info(
         code_bytes, _EPILOGUES[entry], plan.qt, out), 'adc_info')
@@ -323,35 +355,44 @@ def _check(what, dtable, codes_t, mask):
     if not supports_adc(k):
         raise ValueError(f'{what}: K = {k} codewords exceed the kernel limit '
                          f'K <= {MAX_ADC_CLUSTERS}')
-    if codes_t.data_ptr() % 8 or mask.data_ptr() % 4:
-        raise ValueError(f'{what}: codes must be 8-byte and the mask 4-byte aligned '
-                         '(the kernel loads 4 rows at once)')
+    if codes_t.data_ptr() % 16 or mask.data_ptr() % 4:
+        raise ValueError(f'{what}: codes must be 16-byte and the mask 4-byte aligned '
+                         '(the kernel loads 4 rows at once, or copies them in bulk)')
     return q, m, k, codes_t.shape[1], _code_bytes(codes_t)
+
+
+def _count_wide(plan: AdcPlan):
+    """Count a core launch that takes the :data:`WIDE_TILE` (``adc.wide_tile``)."""
+    if plan.qt == WIDE_TILE:
+        count('adc.wide_tile')
 
 
 def _count_launches(entry: str, tab: Optional[torch.Tensor], plan: AdcPlan, top2: bool):
     """Count the kernels one call of ``entry`` launched: the table's
     interleave (``launch.adc_interleave``) unless the core read the table in
-    place, the core (``launch.<entry>``), and the splits' merge of a top-2
-    entry (``launch.adc_merge``)."""
+    place, the core (``launch.<entry>``, and ``adc.wide_tile`` where it took
+    the wide tile), and the splits' merge of a top-2 entry
+    (``launch.adc_merge``)."""
     if tab is not None:
         count('launch.adc_interleave')
     count(f'launch.{entry}')
+    _count_wide(plan)
     if top2 and plan.splits > 1:
         count('launch.adc_merge')
 
 
 def adc_scores_kernel(dtable, codes_t, mask):
     """Launch ``adc_scores`` (K5) -> float32 ``[Q, N]``, BIG where ``mask``
-    is 0.  Codes and mask of an N that is not a multiple of 4 are padded to
-    one (the kernel reads 4 rows per load and writes only the N)."""
+    is 0.  Codes and mask of an N that is not a multiple of 16 are padded to
+    one (the kernel reads 4 rows per load, a tile from :data:`STAGED_TILE`
+    copies each subspace's rows in 16-byte units, and it writes only the N)."""
     q, m, k, n, cb = _check('adc_scores', dtable, codes_t, mask)
-    ld = _round_up(n, 4)
+    ld = _round_up(n, 16)
     if ld != n:
         codes_t = torch.nn.functional.pad(codes_t.view(torch.int8) if cb == 1
                                           else codes_t.view(torch.int16), (0, ld - n))
         mask = torch.nn.functional.pad(mask, (0, ld - n))
-    plan = adc_plan(q, -(-n // BLOCK_N), BLOCK_N, m, k)
+    plan = adc_plan(q, -(-n // BLOCK_N), BLOCK_N, m, k, cb)
     out = torch.empty((q, n), dtype=torch.float32, device=dtable.device)
     tab, tab_ptr = _table_scratch(plan, dtable)
     lib = _ext.library('adc')
@@ -372,7 +413,7 @@ def adc_block_top2(dtable, codes_t, mask, block_n: int):
         raise ValueError('adc_block_top2: N must be a multiple of block_n, '
                          'itself a multiple of 128 of at most 65535 groups')
     nb = n // block_n
-    plan = adc_plan(q, nb, block_n, m, k)
+    plan = adc_plan(q, nb, block_n, m, k, cb)
     s = torch.empty((q, nb * 256), dtype=torch.float32, device=dtable.device)
     r = torch.empty((q, nb * 256), dtype=torch.int32, device=dtable.device)
     ps, pg, parts = _split_parts(plan, q, nb * 256, dtable.device)

@@ -28,9 +28,9 @@ import torch
 from ..device import resolve_device
 from ..profile import count
 from . import BIG, _ext
-from .adc import (MAX_ADC_CLUSTERS, MAX_SMEM, TARGET_CTAS, AdcPlan, _code_bytes, _plan_args,
-                  _round_up, _split_parts, _table_scratch, adc_info, adc_plan, adc_scores_ref,
-                  supports_adc)
+from .adc import (MAX_ADC_CLUSTERS, MAX_SMEM, TARGET_CTAS, AdcPlan, _code_bytes, _count_wide,
+                  _plan_args, _round_up, _split_parts, _table_scratch, adc_info, adc_plan,
+                  adc_scores_ref, supports_adc)
 from .fused_scan import _bucket_top2, _lane8_merge_ref, lane8_merge
 from .topk import topk
 
@@ -129,9 +129,10 @@ class IvfPlan(NamedTuple):
     core: Optional[AdcPlan]
 
 
-def _core_plan(nq: int, n_sel: int, bs: int, m: int, k: int) -> IvfPlan:
+def _core_plan(nq: int, n_sel: int, bs: int, m: int, k: int,
+               code_bytes: Optional[int] = None) -> IvfPlan:
     """The lookup core's launch (:func:`~.adc.adc_plan`) as an IVF plan."""
-    core = adc_plan(nq, n_sel, bs, m, k)
+    core = adc_plan(nq, n_sel, bs, m, k, code_bytes)
     return IvfPlan('core', core.qt, core.tiles, 0, core.grid, core.threads, core.smem, True,
                    core.mc, 0, core)
 
@@ -167,20 +168,22 @@ def _top2_plan(nq: int, n_sel: int, bs: int, m: int, k: int, ctas: int,
 
 @functools.lru_cache(maxsize=1024)
 def ivf_plan(entry: str, nq: int, n_sel: int, bs: int, m: int, k: int,
-             ctas: int = TARGET_CTAS) -> IvfPlan:
+             ctas: int = TARGET_CTAS, code_bytes: Optional[int] = None) -> IvfPlan:
     """The launch of ``entry`` ('ivf_scores' or 'ivf_block_top2') for ``nq``
     queries over ``n_sel`` selected blocks of ``bs`` slots, ``m`` subspaces of
-    ``k`` codewords, on a card of ``ctas`` SMs.  K7 up to
+    ``k`` codewords (codes of ``code_bytes``, as :func:`~.adc.adc_plan`), on a
+    card of ``ctas`` SMs.  K7 up to
     :data:`ROWS_MAX_QUERIES` queries takes its own body, above them the
     lookup core; K6 takes whichever of its own body and the core
     :data:`K6_OWN_MS` and :data:`K6_CORE_MS` expect to be faster."""
     if entry == 'ivf_scores':
         if nq > ROWS_MAX_QUERIES:
-            return _core_plan(nq, n_sel, bs, m, k)
+            return _core_plan(nq, n_sel, bs, m, k, code_bytes)
         return _rows_plan(nq, n_sel, bs, m, k)
     if entry != 'ivf_block_top2':
         raise ValueError(f'ivf_plan: unknown entry {entry!r}')
-    own, core = _top2_plan(nq, n_sel, bs, m, k, ctas), _core_plan(nq, n_sel, bs, m, k)
+    own = _top2_plan(nq, n_sel, bs, m, k, ctas)
+    core = _core_plan(nq, n_sel, bs, m, k, code_bytes)
     lookups = n_sel * bs * m
     waves = -(-core.grid // ctas)
     own_ms = K6_OWN_MS[0] + K6_OWN_MS[1] * nq * lookups
@@ -240,7 +243,8 @@ def ivf_info(entry: str, nq: int, n_sel: int, bs: int, m: int, k: int,
     the card: its plan, the kernels one call launches, the grid, and the
     registers and spilled bytes per thread of its instantiation.  Builds the
     kernels; needs a card."""
-    plan = ivf_plan(entry, nq, n_sel, bs, m, k, _sm_count(torch.cuda.current_device()))
+    plan = ivf_plan(entry, nq, n_sel, bs, m, k, _sm_count(torch.cuda.current_device()),
+                    code_bytes)
     if plan.kernel == 'core':
         return {'kernel': 'core', **adc_info(entry, nq, n_sel, bs, m, k, code_bytes)}
     out = (ctypes.c_int * 2)()
@@ -268,9 +272,10 @@ def _check(what, block_ids, dtable, codes_blocks, *more):
     if not supports_adc(k):
         raise ValueError(f'{what}: K = {k} codewords exceed the kernel limit '
                          f'K <= {MAX_ADC_CLUSTERS}')
-    if q == 0 or block_ids.shape[0] == 0 or codes_blocks.data_ptr() % 8:
-        raise ValueError(f'{what}: at least one query and one selection, and 8-byte '
-                         'aligned codes (the kernel loads 4 slots at once), expected')
+    if q == 0 or block_ids.shape[0] == 0 or codes_blocks.data_ptr() % 16:
+        raise ValueError(f'{what}: at least one query and one selection, and 16-byte '
+                         'aligned codes (the kernels load 4 slots at once, or copy them '
+                         'in bulk), expected')
     if block_ids.shape[0] * codes_blocks.shape[2] >= 2**31:
         raise ValueError(f'{what}: selections x block size must stay below 2^31')
     return q, m, k, block_ids.shape[0], codes_blocks.shape[2], _code_bytes(codes_blocks)
@@ -285,7 +290,7 @@ def ivf_scores(block_ids, dtable, codes_blocks, plan: Optional[IvfPlan] = None):
     """Launch ``ivf_scores`` (K7) -> float32 ``[S, Q, BS]``; ``plan``
     overrides :func:`ivf_plan`'s (a measurement aid)."""
     q, m, k, s, bs, cb = _check('ivf_scores', block_ids, dtable, codes_blocks)
-    plan = plan or ivf_plan('ivf_scores', q, s, bs, m, k)
+    plan = plan or ivf_plan('ivf_scores', q, s, bs, m, k, code_bytes=cb)
     out = torch.empty((s, q, bs), dtype=torch.float32, device=dtable.device)
     with torch.cuda.device(dtable.device):
         if plan.kernel == 'core':
@@ -294,6 +299,7 @@ def ivf_scores(block_ids, dtable, codes_blocks, plan: Optional[IvfPlan] = None):
                 block_ids.data_ptr(), dtable.data_ptr(), codes_blocks.data_ptr(),
                 out.data_ptr(), tab_ptr, s, q, m, k, bs, cb, _plan_args(plan.core),
                 _ext.stream_ptr(dtable)), 'ivf_scores')
+            _count_wide(plan.core)
         else:
             dtable = _aligned(dtable)
             _ext.check(_ext.library('ivf').annlite_ivf_rows(
@@ -314,7 +320,7 @@ def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
     if mask_blocks.dtype != torch.int8 or mask_blocks.shape != (codes_blocks.shape[0], bs):
         raise ValueError('ivf_block_top2: unsupported mask')
     dev = dtable.device
-    plan = plan or ivf_plan('ivf_block_top2', q, s, bs, m, k, _sm_count(dev.index))
+    plan = plan or ivf_plan('ivf_block_top2', q, s, bs, m, k, _sm_count(dev.index), cb)
     so = torch.empty((q, s * 256), dtype=torch.float32, device=dev)
     ro = torch.empty((q, s * 256), dtype=torch.int32, device=dev)
     if plan.kernel == 'core':
@@ -327,6 +333,7 @@ def ivf_block_top2(block_ids, dtable, codes_blocks, mask_blocks,
                 s, q, m, k, bs, cb, _plan_args(plan.core), _ext.stream_ptr(dtable)),
                 'ivf_block_top2')
         count('launch.ivf_block_top2')
+        _count_wide(plan.core)
         return so, ro
     part_s = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.float32, device=dev)
     part_g = torch.empty((plan.grid, 2, plan.qt, 256), dtype=torch.int32, device=dev)

@@ -908,23 +908,28 @@ def main() -> int:
         for mtag, mk in (('unmasked', ones_pq), ('mask 50%', keep_pq)):
             check_adc(f'n=2^20 m=64 k=256 u8 {mtag}', dt_all[:nq_].contiguous(),
                       codes_pq, mk, 4096)
-    # the lookup core's query-tile edges: QT - 1, QT, QT + 1 and 2 QT + 1
-    qt_max = ad.MAX_QUERY_TILE
-    for nq_ in (qt_max - 1, qt_max, qt_max + 1, 2 * qt_max + 1):
+    # the lookup core's query-tile edges: QT - 1, QT, QT + 1 and 2 QT + 1 of
+    # the tile of 16 and of the wide tile (32), whose codes the core stages
+    # through its table ring
+    qt16, qt32 = ad.STAGED_TILE, ad.WIDE_TILE
+    for nq_ in sorted({qt16 - 1, qt16, qt16 + 1, 2 * qt16 + 1, qt32 - 1, qt32, qt32 + 1,
+                       2 * qt32 + 1}):
         check_adc('n=2^20 m=64 k=256 u8 mask 50%', dt_all[:nq_].contiguous(), codes_pq,
                   keep_pq, 4096)
     # the facade's PQ index (131,072 rows: 32 blocks), and K5 at an N that is
     # not a multiple of 4 (its codes padded in the wrapper)
     check_adc('n=131072 m=64 k=256 u8 mask 50%', dt_all[:64].contiguous(),
               codes_pq[:, :131072].contiguous(), keep_pq[:131072].contiguous(), 4096)
-    check_adc('n=12293 m=64 k=256 u8 mask 50%', dt_all[:7].contiguous(),
-              codes_pq[:, :12293].contiguous(), keep_pq[:12293].contiguous(), 4096)
+    for nq_ in (7, 33, 64):  # a tile of 8, of 16 and the wide tile
+        check_adc('n=12293 m=64 k=256 u8 mask 50%', dt_all[:nq_].contiguous(),
+                  codes_pq[:, :12293].contiguous(), keep_pq[:12293].contiguous(), 4096)
     # K = 1024 (u16): one query's table is 256 KB, so the kernel tiles it
     # over subspaces; the deep select's blocks shrink to 1024 rows
     dt_u, codes_u = adc_inputs(64, 1 << 17, 1024, torch.uint16)
     keep_u = (torch.rand(1 << 17, device=dev, generator=g) < 0.5).to(torch.int8)
-    check_adc('n=2^17 m=64 k=1024 u16 mask 50%', dt_u, codes_u, keep_u,
-              ad._scale_blocks(1024))
+    for nq_ in (17, 33, 64):  # the wide tile does not fit K = 1024: tiles of 16
+        check_adc('n=2^17 m=64 k=1024 u16 mask 50%', dt_u[:nq_].contiguous(), codes_u, keep_u,
+                  ad._scale_blocks(1024))
     del dt_u, codes_u, keep_u
 
     # K6/K7: 1024 one-block cells of 1024 slots (2^20 rows), probe sets of 1,
@@ -1134,6 +1139,14 @@ def main() -> int:
     k4_ms = cuda_ms(lambda: fs.lane8_merge(*ad.adc_block_top2(dt64, codes_pq, ones_pq, 4096)))
     k4_q1_ms = cuda_ms(lambda: ad.adc_block_top2(dt_all[:1].contiguous(), codes_pq, ones_pq,
                                                  4096))
+    # K4's and K5's cores by batch, about the wide tile's edges (tiles of 16
+    # at 16, 33 and 100; the wide tile at 17, 32 and 64)
+    adc_batch_ms = {
+        f'{name} q{q_}': cuda_ms(lambda: fn(dt_all[:q_].contiguous()))
+        for name, fn in (('adc_block_top2', lambda d: ad.adc_block_top2(d, codes_pq, ones_pq,
+                                                                         4096)),
+                         ('adc_scores', lambda d: ad.adc_scores_kernel(d, codes_pq, ones_pq)))
+        for q_ in (16, 17, 32, 33, 64, 100)}
     nb_pq = npq // 4096
     adc_bounds = {
         'adc_scores': bound(npq * pm + 64 * pm * pk * 4 + npq + 64 * npq * 4,
@@ -1151,6 +1164,9 @@ def main() -> int:
         'adc_block_top2 q64 n=131072': ad.adc_info('adc_block_top2', 64, 32, 4096, pm, pk),
         'adc_block_top2 q64 n=2^17 k=1024 u16': ad.adc_info('adc_block_top2', 64, 128, 1024,
                                                              pm, 1024, 2),
+        'adc_block_top2 q16 n=2^20': ad.adc_info('adc_block_top2', 16, nb_pq, 4096, pm, pk),
+        'adc_block_top2 q17 n=2^20': ad.adc_info('adc_block_top2', 17, nb_pq, 4096, pm, pk),
+        'adc_block_top2 q33 n=2^20': ad.adc_info('adc_block_top2', 33, nb_pq, 4096, pm, pk),
     }
     k4_merge_bound = merge_bound(64, nb_pq)
 
@@ -1280,6 +1296,7 @@ def main() -> int:
           'k4_adc_block_top2_plus_lane8_merge_ms': k4_ms,
           'k4_lane8_merge_bound_ms': k4_merge_bound,
           'k4_adc_block_top2_q1_ms': k4_q1_ms,
+          'adc_core_by_batch_ms': adc_batch_ms,
           'adc_geometry': adc_geometry,
           'adc_scores_i8_max_rel_err_vs_adc_scores': i8_rel[0],
           'adc_scores_i8_geometry': i8_geometry,

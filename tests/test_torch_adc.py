@@ -143,10 +143,13 @@ def test_scale_blocks_and_limits():
         tadc._code_bytes(torch.zeros(3, dtype=torch.int32))
 
 
-# the query tile's edges: Q = 1, QT - 1, QT, QT + 1 and 2 QT + 1 of the
-# lookup core's largest tile (csrc/adc.cu; ops/adc.py adc_plan)
-QT = tadc.MAX_QUERY_TILE
-TILE_EDGES = [1, QT - 1, QT, QT + 1, 2 * QT + 1]
+# the query tiles' edges (csrc/adc.cu; ops/adc.py adc_plan): Q = 1, QT - 1,
+# QT, QT + 1 and 2 QT + 1 of the largest tile below the wide one, the wide
+# tile's edges, and the batches of 64 and 100
+QT = tadc.STAGED_TILE
+WQT = tadc.WIDE_TILE
+TILE_EDGES = sorted({1, QT - 1, QT, QT + 1, 2 * QT + 1, WQT - 1, WQT, WQT + 1, 2 * WQT,
+                     2 * WQT + 1, 100})
 
 
 @pytest.mark.parametrize('nq', TILE_EDGES)
@@ -189,8 +192,14 @@ def _check_plan_covers(n_rb, bn, m, k, queries):
         assert (plan.tiles - 1) * plan.qt < nq <= plan.tiles * plan.qt
         assert groups % plan.splits == 0
         assert plan.threads <= tadc.MAX_THREADS and plan.smem <= tadc.MAX_SMEM
-        assert 1 <= plan.nbuf <= min(plan.nchunks, tadc.NBUF) and (
+        # a tile that stages its codes cycles its slots through the passes
+        staged = plan.qt >= tadc.STAGED_TILE
+        assert 1 <= plan.nbuf <= (tadc.NBUF if staged else min(plan.nchunks, tadc.NBUF)) and (
             (plan.nchunks - 1) * plan.mc < m <= plan.nchunks * plan.mc)
+        # the wide tile only where it pads the batch to no more query slots
+        # than the tiles below it (their plan is the one without it)
+        if plan.qt == tadc.WIDE_TILE:
+            assert nq > QT and plan.tiles * plan.qt <= -(-nq // QT) * QT
         # a chunk of the interleaved table is whole 16-byte units
         assert (plan.mc * -(-k // 4) * 4 * plan.qt * 4) % 16 == 0
         key = (plan.qt, plan.nbc)
@@ -215,6 +224,8 @@ def _check_plan_covers(n_rb, bn, m, k, queries):
     (3, 4096, 64, 256),       # K5 at N = 12,293 (a partial last block)
     (128, 1024, 64, 1024),    # K = 1024, u16: the table tiled over subspaces
     (4, 4096, 4, 58096),      # the largest K the kernels take
+    (139, 1024, 64, 256),     # IVF-PQ's probed blocks on the core (K6, K7)
+    (1, 1024, 7, 256),        # one block, M 7: the wide tile's single chunk
 ])
 def test_adc_plan_covers_each_cell_once(n_rb, bn, m, k):
     _check_plan_covers(n_rb, bn, m, k, range(1, 131))
@@ -224,10 +235,15 @@ def test_adc_plan_limits():
     assert tadc.MAX_ADC_CLUSTERS == (tadc.MAX_SMEM - 64) // 4 == 58096
     with pytest.raises(ValueError, match='exceed'):
         tadc.adc_plan(1, 1, 4096, 8, tadc.MAX_ADC_CLUSTERS + 1)
-    # the PQ path at batch 64: four tiles of 16, two row blocks per CTA, the
-    # table streamed through two buffers; batch 1 keeps its table resident
+    # the PQ path at batch 64: two wide tiles of 32, one row block per CTA,
+    # the table and the codes streamed through two slots of 3 subspaces;
+    # batch 1 keeps its table resident
     p64 = tadc.adc_plan(64, 256, 4096, 64, 256)
-    assert (p64.qt, p64.tiles, p64.threads, p64.splits, p64.nbuf) == (16, 4, 512, 1, 2)
+    assert (p64.qt, p64.tiles, p64.threads, p64.splits, p64.nbuf) == (32, 2, 512, 1, 2)
+    assert (p64.nbc, p64.mc, p64.nchunks) == (1, 3, 22)
+    # two slots of 3 subspaces: 256 entries of 32 floats, and 8 groups of
+    # 128 codes of the row block, a subspace
+    assert p64.smem == 2 * 3 * (256 * 32 * 4 + 8 * 128) + 64 <= tadc.MAX_SMEM
     p1 = tadc.adc_plan(1, 256, 4096, 64, 256)
     assert (p1.qt, p1.nchunks, p1.nbuf) == (1, 1, 1) and p1.splits > 1
 

@@ -207,8 +207,9 @@ def test_dedup_candidates_equal_jax():
         assert len(set(keep)) == len(keep) and set(keep) == set(rows[r][rows[r] >= 0])
 
 
-QT = tadc.MAX_QUERY_TILE
-TILE_EDGES = [1, QT - 1, QT, QT + 1, 2 * QT + 1]
+QT = tadc.STAGED_TILE
+WQT = tadc.WIDE_TILE
+TILE_EDGES = sorted({1, QT - 1, QT, QT + 1, 2 * QT + 1, WQT - 1, WQT, WQT + 1, 2 * WQT + 1})
 
 
 @pytest.mark.parametrize('nq', TILE_EDGES)

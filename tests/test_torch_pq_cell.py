@@ -226,7 +226,7 @@ def test_adc_launch_counters():
 
     # the cell: 64 queries, 1,048,576 padded rows in 256 blocks, M 64, K 256
     cell = adc.adc_plan(64, 256, BLOCK_N, 64, 256)
-    assert (cell.qt, cell.splits) == (16, 1)
+    assert (cell.qt, cell.splits) == (32, 1)
     assert counted('adc_block_top2', cell, 256, True) == \
         {'launch.adc_interleave': 1, 'launch.adc_block_top2': 1, 'launch.adc_merge': 0}
     one = adc.adc_plan(1, 4, BLOCK_N, 64, 256)
@@ -235,6 +235,25 @@ def test_adc_launch_counters():
         {'launch.adc_interleave': 0, 'launch.adc_block_top2': 1, 'launch.adc_merge': 1}
     assert counted('adc_scores', one, 256, False) == \
         {'launch.adc_interleave': 0, 'launch.adc_scores': 1, 'launch.adc_merge': 0}
+
+
+@pytest.mark.parametrize('nq,wide', [(64, True), (17, True), (32, True), (128, True),
+                                     (1, False), (2, False), (8, False), (16, False),
+                                     (33, False), (100, False)])
+def test_adc_wide_tile_counter(nq, wide):
+    """``adc.wide_tile`` counts each core launch that takes the wide tile of
+    32 queries, once, beside the core's own counter, and no launch of a
+    smaller tile; the deep select's other kernels never count it."""
+    plan = adc.adc_plan(nq, 256, BLOCK_N, 64, 256)
+    assert (plan.qt == adc.WIDE_TILE) == wide
+    c0 = profile.snapshot()['counters']
+    adc._count_launches('adc_block_top2', torch.empty(1), plan, True)
+    adc._count_launches('adc_scores', torch.empty(1), plan, False)
+    c1 = profile.snapshot()['counters']
+    got = {n: c1.get(n, 0) - c0.get(n, 0) for n in
+           ('adc.wide_tile', 'launch.adc_block_top2', 'launch.adc_scores')}
+    assert got == {'adc.wide_tile': 2 * int(wide), 'launch.adc_block_top2': 1,
+                   'launch.adc_scores': 1}
 
 
 class _Ctx:

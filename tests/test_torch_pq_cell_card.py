@@ -38,7 +38,7 @@ SEED = 2**31 + 77
 RERANK, LIMIT, BATCH = 40, 10, 64
 TIE = 2.0 ** -20  # as in test_torch_pq_cell.py
 LAUNCHES = ('launch.adc_interleave', 'launch.adc_block_top2', 'launch.adc_merge',
-            'launch.lane8_merge', 'launch.adc_scores')
+            'launch.lane8_merge', 'launch.adc_scores', 'adc.wide_tile')
 
 
 @pytest.fixture(scope='module')
@@ -83,7 +83,39 @@ def test_each_search_launches_the_deep_select_once(cell):
     got = {n: after.get(n, 0) - before.get(n, 0) for n in LAUNCHES}
     cell['report']['launches'] = got
     assert got == {'launch.adc_interleave': 1, 'launch.adc_block_top2': 1,
-                   'launch.adc_merge': 0, 'launch.lane8_merge': 1, 'launch.adc_scores': 0}
+                   'launch.adc_merge': 0, 'launch.lane8_merge': 1, 'launch.adc_scores': 0,
+                   'adc.wide_tile': 1}
+
+
+@pytest.mark.parametrize('nq', [17, 32, 33, 64, 100])
+def test_core_bit_equal_on_the_cells_codes(cell, nq):
+    """The lookup core on the store's trained codes (1,000,000 rows padded to
+    2^20), the wide tile (17, 32, 64 queries) and tiles of 16 (33, 100): K4's
+    block pass and K5's scores bit-equal to their plain versions, half the
+    rows masked; the same codes as IVF blocks of 1,024 rows through K7 and
+    K6 on the core, with a pad selection."""
+    from annlite_torch.ops import ivf
+    index = cell['index']
+    codes_t = index._codes_t.device_view()
+    n = codes_t.shape[1]
+    q_t = torch.from_numpy(cell['xq'][:nq]).cuda()
+    dt = index.pq_codec.dist_mat(q_t).float().contiguous()
+    mask = (torch.arange(n, device='cuda') % 3 != 1).to(torch.int8)
+    plan = adc.adc_plan(nq, n // adc.BLOCK_N, adc.BLOCK_N, 64, 256)
+    assert (plan.qt == adc.WIDE_TILE) == (nq in (17, 32, 64))
+    got = adc.adc_block_top2(dt, codes_t, mask, adc.BLOCK_N)
+    want = adc._adc_block_top2_ref(dt, codes_t, mask, adc.BLOCK_N)
+    assert all(map(torch.equal, got, want))
+    assert torch.equal(adc.adc_scores_kernel(dt, codes_t, mask),
+                       adc._adc_scores_ref(dt, codes_t, mask))
+    blocks = codes_t[:, :139 * 1024].reshape(64, 139, 1024).permute(1, 0, 2).contiguous()
+    ids = torch.cat([torch.arange(138, dtype=torch.int32, device='cuda'),
+                     torch.full((1,), -1, dtype=torch.int32, device='cuda')])
+    mb = mask[:139 * 1024].reshape(139, 1024).contiguous()
+    assert torch.equal(ivf.ivf_scores(ids, dt, blocks), ivf._ivf_scores_ref(ids, dt, blocks))
+    core = ivf._core_plan(nq, 139, 1024, 64, 256)
+    assert all(map(torch.equal, ivf.ivf_block_top2(ids, dt, blocks, mb, core),
+                   ivf._ivf_block_top2_ref(ids, dt, blocks, mb)))
 
 
 def test_answers_and_shortlists_against_the_reference(cell):
